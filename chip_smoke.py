@@ -6,20 +6,32 @@
 Phases, each printing its lines; any failure exits non-zero:
 
 1. card: the GPU's name and power limit, from nvidia-smi;
-2. build: compile the CUDA gallery-match kernel from ``src/repro_torch/
-   kernels/csrc`` (nvcc, sm_90a) and print the build time;
-3. kernel vs plain: the kernel against its plain PyTorch version on the
-   card, for fp32, bf16 and int8 galleries at Q in {1, 16, 256},
-   N in {1000, 262144}, D = 128, k in {1, 5}, plus k > N and galleries
-   that take the kernel's element-wise load path; then the
+2. build: compile both CUDA kernels from ``src/repro_torch/kernels/csrc``
+   (one nvcc each for sm_90a, started together) and print each build time;
+3. gallery-match kernel vs plain: the kernel against its plain PyTorch
+   version on the card, for fp32, bf16 and int8 galleries at Q in
+   {1, 16, 256}, N in {1000, 262144}, D = 128, k in {1, 5}, plus k > N and
+   galleries that take the kernel's element-wise load path; then the
    kernel's, the plain version's and ``torch.topk(q @ g.T)``'s device
    times at N = 262144 (from a profiler trace) beside the card's bound for
    the same work;
-4. main path: ``run_biometric`` on the card once per match dtype, over a
-   4-shard watchlist of the 10 pipeline subjects plus 1,048,576 random
-   unit distractors (512 MiB of fp32 templates), 30 frames with the live
-   hot-swap; then ``run_fleet`` for 3 s of offered traffic.  The kernel's
-   launch count is set to 0 before and read after each run.
+4. rescore kernel vs plain: the cell-rescore kernel against its plain
+   version over the ragged cells of one 262,144-row shard (pad rows
+   poisoned, so a read of one shows), at Q in {1, 16, 256}, c in
+   {1, 8, 16}, k in {1, 5}, plus -1 probes (c > K), k past the probed
+   rows, empty cells, D = 36 and 260, a misaligned array and equal rows
+   in two probed cells; then its and the plain version's device times at
+   the serving shape (Q = 1, c = 8, k = 1) beside the bound;
+5. exact main path: ``run_biometric`` on the card once per match dtype,
+   over a 4-shard watchlist of the 10 pipeline subjects plus 1,048,576
+   random unit distractors (512 MiB of fp32 templates), 30 frames with the
+   live hot-swap; then ``run_fleet`` for 3 s of offered traffic;
+6. ANN main path: one such watchlist, indexed once (1024 cells), served by
+   ``run_biometric(match_mode="ann", nprobe=8)`` once per match dtype; the
+   served labels are held against the plain versions run on the kernels'
+   own probe tables.
+Each run of a main path sets the kernels' launch counts to 0 just before
+it and reads them just after.
 
 The last two lines before the final one are the card's name and power
 limit and a JSON object with each kernel's numbers; the final line is
@@ -31,6 +43,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -46,6 +59,9 @@ N_BIG = 262_144
 DISTRACTORS = 1_048_576
 SHARDS = 4
 DTYPES = ("fp32", "bf16", "int8")
+CELLS = 1024            # cells of one N_BIG shard at the index's sqrt(N)
+NPROBE = 8              # the serving path's probes per query
+DEV = "cuda"
 
 
 def fail(msg: str) -> int:
@@ -63,7 +79,7 @@ def card_line() -> str:
 
 def gallery(torch, gm, dtype, N, D, gen):
     """A unit-row gallery in the storage dtype: (g, scale or None)."""
-    g = torch.randn((N, D), generator=gen, device="cuda")
+    g = torch.randn((N, D), generator=gen, device=DEV)
     g = g / torch.linalg.vector_norm(g, dim=-1, keepdim=True)
     if dtype == "int8":
         return gm.quantize_gallery(g)
@@ -92,7 +108,7 @@ def compare(torch, gm, dtype, Q, N, k, gen, D=128, misalign=False):
     """Kernel vs plain on one shape; returns the max abs score error.
     ``misalign`` starts the gallery one element past a 16-byte boundary,
     which sends the kernel down its element-wise load path."""
-    q = torch.randn((Q, D), generator=gen, device="cuda") * 3.0
+    q = torch.randn((Q, D), generator=gen, device=DEV) * 3.0
     g, scale = gallery(torch, gm, dtype, N + misalign, D, gen)
     if misalign:
         g = g.reshape(-1)[1:1 + N * D].view(N, D)
@@ -137,19 +153,20 @@ def _kernel_us(prof) -> float:
 
 
 def timed(torch, fn, galleries, iters=10):
-    """(device ms, call ms) of one call of ``fn(g, scale)``.
+    """(device ms, call ms) of one call of ``fn(*args)``, ``args`` taken in
+    turn from ``galleries``.
 
-    The calls rotate over four galleries of one shard's size, as the
-    serving path's four shards do, so no call finds its gallery in the
-    50 MB L2 cache.  Device ms is the kernels' own time, summed from a
+    The gallery-match calls rotate over four galleries of one shard's size,
+    as the serving path's four shards do, so no call finds its gallery in
+    the 50 MB L2 cache.  Device ms is the kernels' own time, summed from a
     ``torch.profiler`` trace; call ms is CUDA events around back-to-back
     calls, so it also holds any time the card waits on the host."""
     from torch.profiler import ProfilerActivity, profile
 
     def rounds(n):
         for _ in range(n):
-            for g, scale in galleries:
-                fn(g, scale)
+            for args in galleries:
+                fn(*args)
 
     rounds(2)
     torch.cuda.synchronize()
@@ -177,14 +194,25 @@ def bound(dtype, Q, N, D, k):
     nbytes = Q * D * q_item + N * D * item + Q * k * 8
     if dtype == "int8":
         nbytes += N * 4                          # per-row scales
-    t_bytes = nbytes / HBM_BYTES_S
-    t_ops = 2.0 * Q * N * D / PEAK_OPS_S[dtype]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    return work_bound(dtype, nbytes, 2.0 * Q * N * D)
+
+
+def phase_build(modules):
+    """Build every kernel library at once, one nvcc each, and print each
+    build time and ptxas's report."""
+    def one(mod):
+        t0 = time.perf_counter()
+        lib = mod.build(verbose=True)
+        return lib, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(modules)) as pool:
+        built = list(pool.map(one, modules))
+    for lib, secs in built:
+        print(f"[build] {lib.relative_to(ROOT)} in {secs:.1f} s")
 
 
 def phase_kernel(torch, gm):
-    gen = torch.Generator(device="cuda").manual_seed(1234)
+    gen = torch.Generator(device=DEV).manual_seed(1234)
     shapes = [(Q, N, k, 128, False) for Q in (1, 16, 256)
               for N in (1000, N_BIG) for k in (1, 5)]
     shapes += [(3, 3, 5, 128, False), (5, 1, 2, 128, False),  # k > N, Q < 8
@@ -203,7 +231,7 @@ def phase_kernel(torch, gm):
         shards = [gallery(torch, gm, dtype, N_BIG, D, gen) for _ in range(4)]
         for Q in (1, 16, 256):
             for k in (1, 5):
-                q = torch.randn((Q, D), generator=gen, device="cuda")
+                q = torch.randn((Q, D), generator=gen, device=DEV)
                 kms, kcall = timed(torch, lambda g, sc: run_kernel(
                     gm, q, g, sc, k), shards)
                 pms, _ = timed(torch, lambda g, sc: run_plain(
@@ -223,19 +251,210 @@ def phase_kernel(torch, gm):
     return errs, timings
 
 
+def shard_cells(torch, gm, dtype, K, D, gen, mean_len=256, misalign=False):
+    """One shard's packed cells in the storage dtype: (cells, scale or
+    None, lens, L).  Lengths are ragged around ``mean_len`` with every 97th
+    cell empty; pad rows are poisoned (NaN, or int8 rows with a 1e30
+    scale), so a kernel that scored one would be caught.  ``misalign``
+    starts the array one element past a 16-byte boundary."""
+    lens = (mean_len + 0.15 * mean_len * torch.randn(
+        K, generator=gen, device=DEV)).round().clamp(min=0).int()
+    lens[::97] = 0
+    L = max(8, -(-int(lens.max()) // 8) * 8)
+    rows = torch.randn((K * L, D), generator=gen, device=DEV)
+    rows = rows / torch.linalg.vector_norm(rows, dim=-1, keepdim=True)
+    pad = torch.arange(K * L, device=DEV) % L >= lens.repeat_interleave(L)
+    scale = None
+    if dtype == "int8":
+        rows, scale = gm.quantize_gallery(rows)
+        rows[pad], scale[pad] = 127, 1e30
+    else:
+        rows[pad] = float("nan")
+        rows = rows.to(torch.bfloat16) if dtype == "bf16" else rows
+    if misalign:
+        buf = rows.new_empty(K * L * D + 1)
+        rows = buf[1:].view(K * L, D).copy_(rows)
+    return rows, scale, lens, L
+
+
+def probe_table(torch, Q, c, K, gen):
+    """c distinct random cells per query (-1 past the K-th, as the coarse
+    scan pads when c > K)."""
+    ids = torch.rand((Q, K), generator=gen, device=DEV).argsort(dim=1)
+    ids = ids[:, :c].int()
+    if c > K:
+        ids = torch.cat([ids, ids.new_full((Q, c - K), -1)], 1)
+    return ids.contiguous()
+
+
+def compare_rescore(torch, A, q, cells, scale, ids, lens, L, k, strict=False):
+    """Rescore kernel vs plain on one input; returns the max abs score
+    error.  A position may differ from the plain version's only where the
+    plain version scores the kernel's pick within TOL of its own, and must
+    be a valid row of a probed cell; ``strict`` asks for equal positions
+    (inputs with exact ties)."""
+    Q = q.shape[0]
+    s, p = A.cell_rescore_cuda(q, cells, ids, lens, scale, k=k, L=L)
+    torch.cuda.synchronize()
+    qc = q.to(torch.bfloat16) if cells.dtype == torch.bfloat16 else q
+    ps, pp = A.cell_rescore_plain(qc, cells, ids, lens, scale, k=k, L=L,
+                                  fuse_norm=True)
+    what = f"{cells.dtype} Q={Q} c={ids.shape[1]} k={k} L={L}"
+    if tuple(s.shape) != (Q, k) or tuple(p.shape) != (Q, k):
+        raise AssertionError(f"{what}: shape {tuple(s.shape)}")
+    if not torch.equal(p < 0, pp < 0) or not bool((s[p < 0] == A.NEG).all()):
+        raise AssertionError(f"{what}: filled slots differ from the plain "
+                             "version's")
+    err = float((s - ps).abs().max())
+    if not err <= TOL:
+        raise AssertionError(f"{what}: score error {err}")
+    live = p >= 0
+    cell, row = (p // L).long(), (p % L).long()
+    probed = (ids.long()[:, :, None] == cell[:, None, :]).any(dim=1)
+    valid = probed & (row < lens.long()[cell.clamp(min=0)])
+    if not bool(valid[live].all()):
+        raise AssertionError(f"{what}: the kernel picked a pad row or a row "
+                             "of a cell it did not probe")
+    qf = qc.float()
+    qf = qf * torch.rsqrt(torch.clamp((qf * qf).sum(-1, keepdim=True),
+                                      min=1e-18))
+    pl = p.long().clamp(min=0)
+    picked = (qf[:, None, :] * cells[pl].float()).sum(-1)
+    if scale is not None:
+        picked = picked * scale[pl]
+    bad = live & (p != pp) & ((picked - ps).abs() > TOL)
+    if bool(bad.any()) or (strict and not torch.equal(p, pp)):
+        raise AssertionError(f"{what}: position mismatch")
+    return err
+
+
+def rescore_work(dtype, Q, ids, lens, D, k):
+    """(bytes, operations) one rescore needs: the valid rows of the
+    distinct probed cells read once (with int8 scales), plus the query,
+    the probe table, the probed cells' lengths and the output; and the
+    multiply-adds of the dots the probes ask for."""
+    item = {"fp32": 4, "bf16": 2, "int8": 1}[dtype]
+    ids = ids.long()
+    cells = ids[ids >= 0].unique()
+    rows = int(lens.long()[cells].sum())
+    nbytes = (rows * D * item + (rows * 4 if dtype == "int8" else 0)
+              + Q * D * (2 if dtype == "bf16" else 4)
+              + int(ids.ge(0).sum()) * 4 + len(cells) * 4 + Q * k * 8)
+    scored = int((lens.long()[ids.clamp(min=0)] * ids.ge(0)).sum())
+    return nbytes, 2.0 * scored * D
+
+
+def work_bound(dtype, nbytes, ops):
+    """The least time (ms) the card could take for ``nbytes`` and ``ops``
+    of ``dtype`` work, and which of the two bounds it."""
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = ops / PEAK_OPS_S[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def run_rescore(A, q, cells, scale, ids, lens, L, k):
+    return A.cell_rescore_cuda(q, cells, ids, lens, scale, k=k, L=L)
+
+
+def run_rescore_plain(torch, A, q, cells, scale, ids, lens, L, k):
+    qc = q.to(torch.bfloat16) if cells.dtype == torch.bfloat16 else q
+    return A.cell_rescore_plain(qc, cells, ids, lens, scale, k=k, L=L,
+                                fuse_norm=True)
+
+
+def tie_cells(torch, gm, dtype, gen, D=128):
+    """Cells 9 and 4 both hold the same 5 rows, and cell 4 holds its row 0
+    again at row 6: a query equal to one of them ties exactly across two
+    probed cells and inside one."""
+    cells, scale, lens, L = shard_cells(torch, gm, "fp32", 12, D, gen,
+                                        mean_len=10)
+    lens[4], lens[9] = 8, 7
+    cells[4 * L:4 * L + 8] = torch.nan_to_num(cells[4 * L:4 * L + 8])
+    cells[9 * L:9 * L + 7] = torch.nan_to_num(cells[9 * L:9 * L + 7])
+    cells[9 * L:9 * L + 5] = cells[4 * L:4 * L + 5]
+    cells[4 * L + 6] = cells[4 * L]
+    q = torch.stack([cells[4 * L], cells[4 * L + 2], cells[4 * L + 6]]) * 2
+    ids = torch.tensor([[9, 4, 0], [4, 9, 1], [0, 9, 4]], dtype=torch.int32,
+                       device=DEV)
+    if dtype == "int8":
+        cells, scale = gm.quantize_gallery(torch.nan_to_num(cells))
+    elif dtype == "bf16":
+        cells = cells.to(torch.bfloat16)
+    return q, cells, scale, ids, lens, L
+
+
+def phase_rescore(torch, gm, A):
+    gen = torch.Generator(device=DEV).manual_seed(4321)
+    D = 128
+    errs, timings = {}, {}
+    for dtype in DTYPES:
+        err, n = 0.0, 0
+
+        def check(*args, **kw):
+            nonlocal err, n
+            err = max(err, compare_rescore(torch, A, *args, **kw))
+            n += 1
+
+        cells, scale, lens, L = shard_cells(torch, gm, dtype, CELLS, D, gen)
+        for Q in (1, 16, 256):
+            for c in (1, NPROBE, 16):
+                ids = probe_table(torch, Q, c, CELLS, gen)
+                ids[::3, 0] = 0             # cell 0 is empty: probe it too
+                q = torch.randn((Q, D), generator=gen, device=DEV) * 3.0
+                for k in (1, 5):
+                    check(q, cells, scale, ids, lens, L, k)
+        # -1 probes (c > K), k past the probed rows, D = 36 and 260 (the
+        # element-wise load path), a misaligned array
+        for K, Dx, c, k, mean, mis in ((5, D, 8, 5, 40, False),
+                                       (16, D, 2, 40, 2, False),
+                                       (40, 36, 4, 5, 30, False),
+                                       (40, 260, 4, 5, 30, False),
+                                       (40, D, 4, 5, 30, True)):
+            xc, xs, xl, xL = shard_cells(torch, gm, dtype, K, Dx, gen,
+                                         mean_len=mean, misalign=mis)
+            ids = probe_table(torch, 6, c, K, gen)
+            ids[-1] = -1                    # a query with no valid probe
+            q = torch.randn((6, Dx), generator=gen, device=DEV)
+            check(q, xc, xs, ids, xl, xL, k)
+        check(*tie_cells(torch, gm, dtype, gen), 6, strict=True)
+        errs[dtype] = err
+        print(f"[rescore] {dtype}: kernel == plain on {n} inputs, max abs "
+              f"score error {err:.3g} (tolerance {TOL})")
+        # the serving shape; four shards' cells and 16 probe tables each,
+        # so one round reads more distinct rows than the L2 cache holds
+        shards = [(cells, scale, lens, L)] + [
+            shard_cells(torch, gm, dtype, CELLS, D, gen) for _ in range(3)]
+        q = torch.randn((1, D), generator=gen, device=DEV)
+        calls = [(q, sc[0], sc[1], probe_table(torch, 1, NPROBE, CELLS, gen),
+                  sc[2], sc[3], 1) for sc in shards for _ in range(16)]
+        kms, kcall = timed(torch, lambda *a: run_rescore(A, *a), calls)
+        pms, _ = timed(torch, lambda *a: run_rescore_plain(torch, A, *a),
+                       calls)
+        work = [rescore_work(dtype, 1, a[3], a[4], D, 1) for a in calls]
+        bms, by = work_bound(dtype, sum(w[0] for w in work) / len(work),
+                             sum(w[1] for w in work) / len(work))
+        timings[dtype] = (kms, pms, bms, by)
+        print(f"[rescore] {dtype} Q=1 c={NPROBE} k=1 L={L} D={D}: "
+              f"kernel_ms={kms:.4f} (per call {kcall:.4f}) plain_ms={pms:.4f}"
+              f" library_ms=n/a bound_ms={bms:.6f} ({by})")
+        del shards, calls
+    return errs, timings
+
+
 class Recorder:
     """Wraps ``WatchlistCartridge.process_batch`` to keep what each frame
     matched: (seq, label, score, query embedding)."""
 
     def __init__(self, cls):
         self.cls, self.orig = cls, cls.process_batch
-        self.rows, self.gallery = [], None
+        self.rows, self.gallery, self.cart = [], None, None
 
     def __enter__(self):
         rec = self
 
         def process_batch(cart, ms):
-            rec.gallery = cart.gallery
+            rec.gallery, rec.cart = cart.gallery, cart
             out = rec.orig(cart, ms)
             for m_in, m_out in zip(ms, out):
                 if m_in.payload is not None:
@@ -265,7 +484,7 @@ def plain_labels(torch, gm, gallery, emb, dtype):
         else:
             g, scale = prep["gn_bf16" if dtype == "bf16" else "gn"], None
         ps, pi = run_plain(torch, gm, q, g, scale, 1)
-        gid = torch.as_tensor(gallery._shard_ids[s], device="cuda")[pi[:, 0]]
+        gid = torch.as_tensor(gallery._shard_ids[s], device=DEV)[pi[:, 0]]
         cand = (ps[:, 0], gid)
         if best is None:
             best = cand
@@ -285,7 +504,7 @@ def phase_main(torch, gm, serve):
         with Recorder(serve.WatchlistCartridge) as rec:
             gm.launches = 0
             rep = serve.run_biometric(
-                n_frames=30, hotswap=True, device="cuda", n_shards=SHARDS,
+                n_frames=30, hotswap=True, device=DEV, n_shards=SHARDS,
                 match_dtype=dtype, distractors=DISTRACTORS)
             launches[dtype] = gm.launches
         wall = time.perf_counter() - t0
@@ -319,7 +538,7 @@ def phase_main(torch, gm, serve):
               f"wall_s={wall:.1f}")
     gm.launches = 0
     t0 = time.perf_counter()
-    rep = serve.run_fleet(duration_s=3.0, device="cuda")
+    rep = serve.run_fleet(duration_s=3.0, device=DEV)
     fleet_launches = gm.launches
     launches["fp32"] += fleet_launches
     if rep.lost != 0 or fleet_launches <= 0:
@@ -334,6 +553,143 @@ def phase_main(torch, gm, serve):
           f"for {len(rep.frontdoor['tenants'])} tenants, "
           f"wall_s={time.perf_counter() - t0:.1f}")
     return launches
+
+
+class ProbeRecorder:
+    """Keeps the probe table of each ``_coarse_scan`` of one gallery, in
+    call order (one call per ``match``)."""
+
+    def __init__(self, gallery):
+        self.gallery, self.ids = gallery, []
+
+    def __enter__(self):
+        orig = self.gallery._coarse_scan
+
+        def coarse_scan(q, nprobe, dtype):
+            out = orig(q, nprobe, dtype)
+            self.ids.append((q.clone(), out[1].clone()))
+            return out
+
+        self.gallery._coarse_scan = coarse_scan
+        return self
+
+    def __exit__(self, *exc):
+        del self.gallery._coarse_scan
+
+
+def plain_ann(torch, gm, A, gallery, q, ids, dtype):
+    """Top-1 (labels, scores) of protected queries ``q`` by the rescore's
+    plain version over the gallery's packed shard views on the card, on the
+    probe table ``ids``, merged as ``match`` merges; and the coarse scan's
+    plain probe table check (each kernel pick equal to the plain version's,
+    or scored by it within TOL of its own pick)."""
+    cb = gallery._ann_dev[dtype]
+    cents, cscale = cb[0], (cb[1] if dtype == "int8" else None)
+    ps, pi = run_plain(torch, gm, q, cents, cscale, ids.shape[1])
+    qc = q.to(torch.bfloat16) if dtype == "bf16" else q
+    qf = qc.float()
+    qf = qf * torch.rsqrt(torch.clamp((qf * qf).sum(-1, keepdim=True),
+                                      min=1e-18))
+    picked = (qf[:, None, :] * cents[ids.long()].float()).sum(-1)
+    if cscale is not None:
+        picked = picked * cscale[ids.long()]
+    if bool(((ids != pi) & ((picked - ps).abs() > TOL)).any()):
+        raise AssertionError(f"{dtype}: the coarse scan's probe table "
+                             "differs from the plain version's")
+    best = None
+    for s in range(gallery.n_shards):
+        if not len(gallery._shard_ids[s]):
+            continue
+        ann = gallery._prepare_ann(s, dtype)
+        layout = ann["layout"]
+        if dtype == "int8":
+            cells, scale = ann["q8"], ann["scale"]
+        else:
+            cells = ann["packed_bf16" if dtype == "bf16" else "packed"]
+            scale = None
+        rs, rp = A.cell_rescore_plain(qc, cells, ids, ann["lens"], scale,
+                                      k=1, L=layout.L, fuse_norm=True)
+        rows = torch.as_tensor(layout.pos_to_row, device=DEV)[
+            rp[:, 0].long().clamp(min=0)]
+        gid = torch.as_tensor(gallery._shard_ids[s], device=DEV)[rows]
+        gid = torch.where(rp[:, 0] >= 0, gid, torch.full_like(gid, 2**62))
+        cand = (rs[:, 0], gid)
+        if best is None:
+            best = cand
+        else:
+            take = (cand[0] > best[0]) | ((cand[0] == best[0])
+                                          & (cand[1] < best[1]))
+            best = (torch.where(take, cand[0], best[0]),
+                    torch.where(take, cand[1], best[1]))
+    labels = [gallery._labels[int(g)] if int(g) < 2**62 else None
+              for g in best[1].cpu()]
+    return labels, best[0].cpu()
+
+
+def phase_ann(torch, gm, A, serve):
+    """The ANN main path: one 1,048,586-template watchlist in 4 shards,
+    enrolled and indexed by the first run, served once per match dtype."""
+    from repro_torch.crypto import SecureGallery
+    gallery = SecureGallery(serve.EMB_DIM, seed=7, n_shards=SHARDS,
+                            device=DEV)
+    build_s = []
+    train = gallery.build_ann_index
+
+    def build_ann_index(**kw):
+        t0 = time.perf_counter()
+        train(**kw)
+        torch.cuda.synchronize()
+        build_s.append(time.perf_counter() - t0)
+
+    gallery.build_ann_index = build_ann_index
+    launches, fractions = {}, {}
+    for dtype in DTYPES:
+        gallery.match_dtype = dtype
+        t0 = time.perf_counter()
+        with Recorder(serve.WatchlistCartridge) as rec, \
+                ProbeRecorder(gallery) as probes:
+            gm.launches = A.launches = 0
+            rep = serve.run_biometric(
+                n_frames=30, hotswap=True, device=DEV, n_shards=SHARDS,
+                distractors=DISTRACTORS, match_mode="ann", nprobe=NPROBE,
+                gallery=gallery)
+            launches[dtype] = (gm.launches, A.launches)
+        wall = time.perf_counter() - t0
+        if dtype == DTYPES[0]:
+            print(f"[ann] index: {gallery._ann_n_cells} cells over "
+                  f"{len(gallery)} templates, trained in {build_s[0]:.1f} s")
+        calls = rec.cart.stats["match_calls"]
+        n_gm, n_cr = launches[dtype]
+        if rep.frames_out != 30 or rep.lost != 0:
+            raise AssertionError(f"ann {dtype}: frames_out={rep.frames_out} "
+                                 f"lost={rep.lost}")
+        if len(build_s) != 1 or calls != len(probes.ids) or \
+                n_gm != calls or n_cr != SHARDS * calls or calls == 0:
+            raise AssertionError(
+                f"ann {dtype}: {calls} match calls, {len(probes.ids)} coarse "
+                f"scans, launches coarse={n_gm} rescore={n_cr}, "
+                f"{len(build_s)} index builds")
+        # the served labels vs the plain versions on the kernels' own probe
+        # tables (rows recorded in the order the calls matched them)
+        q = torch.cat([p[0] for p in probes.ids])
+        ids = torch.cat([p[1] for p in probes.ids])
+        plain, plain_s = plain_ann(torch, gm, A, gallery, q, ids, dtype)
+        got = [r[1] for r in rec.rows]
+        serr = float((torch.tensor([r[2] for r in rec.rows]) - plain_s)
+                     .abs().max())
+        if got != plain or not serr <= TOL:
+            raise AssertionError(f"ann {dtype}: kernel labels {got} differ "
+                                 f"from the plain version's {plain} (score "
+                                 f"error {serr})")
+        right = sum(lab == f"subject{seq % 10}" for seq, lab, *_ in rec.rows)
+        fractions[dtype] = gallery.last_match_stats["scan_fraction"]
+        print(f"[ann] {dtype}: {len(gallery)} templates in {SHARDS} shards, "
+              f"nprobe={NPROBE}, frames_out={rep.frames_out} lost={rep.lost}"
+              f" match_calls={calls} launches gallery_match={n_gm} "
+              f"cell_rescore={n_cr}, labels==subject {right}/30, "
+              f"labels==plain 30/30, scan_fraction="
+              f"{fractions[dtype]:.6f}, wall_s={wall:.1f}")
+    return launches, fractions
 
 
 def phase_reference(torch, serve):
@@ -364,20 +720,20 @@ def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         return fail(f"the port's sources are not under {SRC}")
     sys.path.insert(0, str(SRC))
+    from repro_torch.kernels import ann_match as A
     from repro_torch.kernels import gallery_match as gm
     from repro_torch.launch import serve
 
     card = card_line()
     print(f"[card] {card}")
-    t0 = time.perf_counter()
-    lib = gm.build(verbose=True)
-    print(f"[build] {lib.relative_to(ROOT)} in "
-          f"{time.perf_counter() - t0:.1f} s")
+    phase_build([gm, A])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     errs, timings = phase_kernel(torch, gm)
+    r_errs, r_timings = phase_rescore(torch, gm, A)
     phase_reference(torch, serve)
     launches = phase_main(torch, gm, serve)
+    ann_launches, _ = phase_ann(torch, gm, A, serve)
 
     kernels = []
     for dtype in DTYPES:
@@ -386,9 +742,20 @@ def main() -> int:
             "name": f"gallery_match[{dtype}]", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/gallery_match.cu",
             "replaces": "src/repro/kernels/gallery_match.py:136",
-            "launches": launches[dtype], "max_abs_err": errs[dtype],
+            "launches": launches[dtype] + ann_launches[dtype][0],
+            "max_abs_err": errs[dtype],
             "ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
             "library_ms": lms, "shape": f"Q=1 N={N_BIG} D=128 k=1"})
+    for dtype in DTYPES:
+        kms, pms, bms, by = r_timings[dtype]
+        kernels.append({
+            "name": f"cell_rescore[{dtype}]", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/cell_rescore.cu",
+            "replaces": "src/repro/kernels/ann_match.py:200",
+            "launches": ann_launches[dtype][1], "max_abs_err": r_errs[dtype],
+            "ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None,
+            "shape": f"Q=1 c={NPROBE} K={CELLS} D=128 k=1"})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -22,9 +22,21 @@ built lazily and invalidated by ``enroll``/``rekey``/``reshard``;
 remain resident.  Match dtypes: ``"fp32"`` (oracle), ``"bf16"``,
 ``"int8"``.
 
-This is the port of the reference's exact mode.  The two-level ANN tier
-(``build_ann_index``, ``match(mode="ann")``) comes with the next slice of
-the port, with its rescore kernel; here it raises ``NotImplementedError``.
+Planet-scale tier (two-level ANN).  Exact per-shard scan is linear in N;
+``build_ann_index()`` trains one global spherical-k-means codebook (K
+cells, encrypted at rest like everything else) and assigns every row to
+a cell, and ``match(mode="ann", nprobe=c)`` scores only K centroids plus
+the rows of each query's top-c cells (``kernels/ann_match``: coarse
+centroid scan on the gallery-match kernel → exact rescore in the probed
+cells on the rescore kernel, both storage-dtype aware).  Index maintenance
+is **incremental**: ``enroll`` assigns new rows to existing cells (never
+retrains), ``rekey`` rotates the codebook through the key change (cosine
+geometry is rotation-invariant, so assignments survive), and ``reshard``
+only re-packs the per-shard physical layouts — ``ann_stats["trainings"]``
+stays at one unless ``build_ann_index`` is called again explicitly.
+``last_match_stats`` reports rows scored vs rows resident.  The codebook
+is trained and the cells are packed on the host, as in the reference; the
+packed cells and the codebook's match forms live on the store's device.
 """
 from __future__ import annotations
 
@@ -36,13 +48,11 @@ import torch
 from repro_torch.crypto.templates import (KeyedRotation, decrypt_array,
                                           encrypt_array)
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ann_match as A
 from repro_torch.kernels import ops as K
 
 MATCH_DTYPES = ("fp32", "bf16", "int8")
 MATCH_MODES = ("exact", "ann")
-_ANN_LATER = ("the ANN tier (build_ann_index, match(mode='ann')) is not "
-              "ported yet: it comes with the next slice of the PyTorch "
-              "port, with the cell rescore kernel")
 
 
 def _deficit_alloc(sizes: np.ndarray, n_new: int) -> np.ndarray:
@@ -104,11 +114,19 @@ class SecureGallery:
         self._tenant_codes: dict = {None: 0}
         self._tenant_names: list = [None]
         self._tenant_tags = np.empty((0,), np.int32)
+        # two-level ANN tier: encrypted global codebook + per-gid cell
+        # assignment (ints, not biometric data); physical packed layouts
+        # live in the per-shard _prep caches
+        self._ann_blob: Optional[dict] = None      # encrypted (K, D) f32
+        self._ann_codebook: Optional[np.ndarray] = None   # decrypt-once
+        self._ann_dev: dict = {}          # match dtype -> codebook tensors
+        self._ann_assign = np.empty((0,), np.int32)       # gid -> cell
+        self._ann_n_cells = 0
         self.ann_stats = {"trainings": 0, "assign_calls": 0, "packs": 0}
         self.failovers = 0                 # shard rebuilds after lane death
         self.last_match_stats: dict = {}
-        # optional FlightRecorder: failovers emit instants at
-        # tracer.clock() (the gallery has no clock of its own)
+        # optional FlightRecorder: failovers/ANN trainings emit instants
+        # at tracer.clock() (the gallery has no clock of its own)
         self.tracer = None
 
     # -- enrollment ------------------------------------------------------------
@@ -155,6 +173,13 @@ class SecureGallery:
         code = self._tenant_code(tenant, create=True)
         self._tenant_tags = np.concatenate(
             [self._tenant_tags, np.full(n_new, code, np.int32)])
+        if self._ann_blob is not None and n_new:
+            # incremental index maintenance: new rows join existing cells
+            # (nearest centroid in protected space); the codebook is NOT
+            # retrained — ann_stats["trainings"] must not move here
+            new_cells = A.assign_cells(prot, self._codebook())
+            self._ann_assign = np.concatenate([self._ann_assign, new_cells])
+            self.ann_stats["assign_calls"] += 1
         alloc = _deficit_alloc([len(ids) for ids in self._shard_ids], n_new)
         offsets = np.concatenate([[0], np.cumsum(alloc)])
         for shard in range(self.n_shards):
@@ -214,9 +239,12 @@ class SecureGallery:
         return prep
 
     def seal(self):
-        """Drop every plaintext match-time view; only the encrypted-at-rest
+        """Drop every plaintext match-time view — including the decrypted
+        ANN codebook and packed cell layouts; only the encrypted-at-rest
         blobs stay resident (next ``match`` re-prepares)."""
         self._prep = [{} for _ in self._shards]
+        self._ann_codebook = None
+        self._ann_dev = {}
 
     def _tenant_shard_rows(self, s: int, code: int) -> np.ndarray:
         """Shard-local row indices belonging to a tenant (cached in the
@@ -258,7 +286,138 @@ class SecureGallery:
     # -- two-level ANN tier ------------------------------------------------------
     def build_ann_index(self, *, n_cells: Optional[int] = None,
                         iters: int = 6, seed: int = 0):
-        raise NotImplementedError(_ANN_LATER)
+        """Train the global centroid codebook (spherical k-means-lite over
+        every row, on the host) and assign each row to a cell.  The one
+        expensive, explicit operation — everything after it
+        (enroll/rekey/reshard) maintains the index incrementally."""
+        assert self._n > 0, "empty gallery"
+        gn = np.empty((self._n, self.dim), np.float32)
+        for s in range(self.n_shards):
+            if len(self._shard_ids[s]):
+                gn[self._shard_ids[s]] = self._prepare(s, "fp32")["gn"] \
+                    .cpu().numpy()
+        if n_cells is None:
+            n_cells = max(1, int(round(float(np.sqrt(self._n)))))
+        n_cells = max(1, min(n_cells, self._n))
+        codebook = A.kmeans_lite(gn, n_cells, iters=iters, seed=seed)
+        self._ann_n_cells = codebook.shape[0]
+        self._ann_blob = encrypt_array(self._cipher_key, codebook)
+        self._ann_codebook = codebook
+        self._ann_dev = {}
+        self._ann_assign = A.assign_cells(gn, codebook)
+        self.ann_stats["trainings"] += 1
+        if self.tracer is not None:
+            self.tracer.instant("gallery.ann_train", self.tracer.clock(),
+                                track="gallery", rows=self._n,
+                                n_cells=self._ann_n_cells)
+        for s in range(self.n_shards):             # packed layouts are stale
+            self._prep[s].pop("ann", None)
+            self._prep[s].pop("tenant_ann", None)
+
+    @property
+    def ann_indexed(self) -> bool:
+        return self._ann_blob is not None
+
+    def _codebook(self) -> np.ndarray:
+        """Decrypt-once cached codebook (dropped by ``seal``)."""
+        if self._ann_codebook is None:
+            self._ann_codebook = decrypt_array(self._cipher_key,
+                                               self._ann_blob)
+        return self._ann_codebook
+
+    def _prepare_ann(self, s: int, dtype: str,
+                     code: Optional[int] = None) -> dict:
+        """Padded cell-major physical view of shard ``s`` for ``dtype``,
+        built lazily from the prepared (decrypt-once) view + the global
+        assignment — an *affected-shard-only* repack, never a retrain.
+        With a tenant ``code``, the layout and packed arrays cover only
+        that tenant's rows (``ann["rows"]`` maps back to shard-local).
+        Layouts are packed on the host; the packed cells and the cell
+        lengths are kept on the store's device."""
+        prep = self._prepare(s, dtype)
+        if code is None:
+            if "ann" not in prep:
+                assign = self._ann_assign[self._shard_ids[s]]
+                prep["ann"] = {"layout": A.build_cell_layout(
+                    assign, self._ann_n_cells)}
+                self.ann_stats["packs"] += 1
+            ann = prep["ann"]
+        else:
+            ann = prep.setdefault("tenant_ann", {}).setdefault(code, {})
+            if "layout" not in ann:
+                rows = self._tenant_shard_rows(s, code)
+                ann["rows"] = rows
+                assign = self._ann_assign[self._shard_ids[s][rows]]
+                ann["layout"] = A.build_cell_layout(assign,
+                                                    self._ann_n_cells)
+                self.ann_stats["packs"] += 1
+        layout = ann["layout"]
+        if "lens" not in ann:
+            ann["lens"] = torch.from_numpy(layout.cell_lens).to(self.device)
+        need_q8 = dtype == "int8" and "q8" not in ann
+        need_packed = dtype in ("fp32", "bf16") and "packed" not in ann
+        if need_q8 or need_packed:
+            gn = prep["gn"].cpu().numpy()
+            if code is not None:
+                gn = gn[ann["rows"]]
+            if need_q8:
+                q8, scale = A.pack_cells_quant(gn, layout)
+                ann["q8"] = torch.from_numpy(q8).to(self.device)
+                ann["scale"] = torch.from_numpy(scale).to(self.device)
+            else:
+                ann["packed"] = torch.from_numpy(
+                    A.pack_cells(gn, layout)).to(self.device)
+        if dtype == "bf16" and "packed_bf16" not in ann:
+            ann["packed_bf16"] = ann["packed"].to(torch.bfloat16)
+        return ann
+
+    def _coarse_scan(self, q: torch.Tensor, nprobe: int, dtype: str):
+        """Query-vs-codebook probe selection in the match dtype (the
+        codebook is small, so its device forms are derived from the
+        decrypt-once cache, once per dtype)."""
+        cb = self._ann_dev.get(dtype)
+        if cb is None:
+            cents = torch.from_numpy(self._codebook()).to(self.device)
+            if dtype == "int8":
+                cb = K.prepare_gallery_quant(cents)
+            else:
+                cb = (cents.to(torch.bfloat16) if dtype == "bf16"
+                      else cents,)
+            self._ann_dev[dtype] = cb
+        if dtype == "int8":
+            return K.centroid_topc_quant(q, *cb, c=nprobe)
+        return K.centroid_topc(q, *cb, c=nprobe)
+
+    def _match_shard_ann(self, s: int, q: torch.Tensor,
+                         cell_ids: torch.Tensor, ids: np.ndarray, k: int,
+                         dtype: str, code: Optional[int] = None):
+        """Exact rescore of shard ``s`` restricted to the probed cells
+        (and, with a tenant ``code``, to that tenant's rows); ``ids`` is
+        the probe table on the host.  Returns (scores, global ids,
+        rows_scored) on the host, with -1 ids on unfilled slots."""
+        ann = self._prepare_ann(s, dtype, code)
+        layout = ann["layout"]
+        if dtype == "int8":
+            scores, pos = K.cell_rescore_quant(
+                q, ann["q8"], ann["scale"], cell_ids, ann["lens"], k=k,
+                L=layout.L)
+        else:
+            packed = ann["packed_bf16"] if dtype == "bf16" \
+                else ann["packed"]
+            scores, pos = K.cell_rescore(q, packed, cell_ids, ann["lens"],
+                                         k=k, L=layout.L)
+        pos = pos.cpu().numpy()
+        rows = np.where(pos >= 0,
+                        layout.pos_to_row[np.clip(pos, 0, None)], -1)
+        if code is not None:          # subset-local -> shard-local rows
+            rows = np.where(rows >= 0,
+                            ann["rows"][np.clip(rows, 0, None)], -1)
+        gids = np.where(rows >= 0,
+                        self._shard_ids[s][np.clip(rows, 0, None)], -1)
+        # average gallery rows rescored per query in this shard
+        scored = float(layout.cell_lens[ids.clip(0)][ids >= 0].sum()
+                       / max(ids.shape[0], 1))
+        return scores.cpu().numpy(), gids, scored
 
     # -- matching entry ----------------------------------------------------------
     def match(self, raw_queries, k: int = 5, dtype: Optional[str] = None, *,
@@ -267,9 +426,13 @@ class SecureGallery:
 
         Queries are protected with the same rotation, then matched in
         protected space (cosine is invariant under the shared rotation).
-        Each shard is searched in full (one kernel call per shard, i.e.
-        per replica lane).  The per-shard top-k merge to a global top-k
-        runs on the host and breaks score ties by **global id**, so
+        ``mode="exact"``: each shard is searched in full (one kernel call
+        per shard, i.e. per replica lane).  ``mode="ann"``: one coarse
+        scan against the global codebook picks each query's top-``nprobe``
+        cells, then every shard rescores only the probed cells — rows
+        scored per query drops from N to ~K + nprobe·N/K (tracked in
+        ``last_match_stats``).  The per-shard top-k merge to a global
+        top-k runs on the host and breaks score ties by **global id**, so
         results are invariant to the shard topology; ``dtype`` selects
         the score path (default: the store's ``match_dtype``).
 
@@ -284,8 +447,9 @@ class SecureGallery:
             raise ValueError(f"dtype must be one of {MATCH_DTYPES}")
         if mode not in MATCH_MODES:
             raise ValueError(f"mode must be one of {MATCH_MODES}")
-        if mode == "ann":
-            raise NotImplementedError(_ANN_LATER)
+        if mode == "ann" and not self.ann_indexed:
+            raise ValueError("ANN index not built — call "
+                             "build_ann_index() before match(mode='ann')")
         code = None
         n_scope = self._n
         if tenant is not None:
@@ -296,7 +460,13 @@ class SecureGallery:
         k = min(k, n_scope)
         q = self.rotation.protect(torch.as_tensor(raw_queries)
                                   .to(self.device))
+        centroid_rows = 0
         cell_rows = 0
+        if mode == "ann":
+            nprobe = max(1, min(nprobe, self._ann_n_cells))
+            _, cell_ids = self._coarse_scan(q, nprobe, dtype)
+            ids = cell_ids.cpu().numpy()
+            centroid_rows = self._ann_n_cells
         shard_scores, shard_gids = [], []
         for s in range(self.n_shards):
             rows = None
@@ -306,13 +476,20 @@ class SecureGallery:
                 n_s = len(rows)
             if n_s == 0:
                 continue
-            scores, idx = self._match_shard(s, q, min(k, n_s), dtype, rows)
+            ks = min(k, n_s)
+            if mode == "ann":
+                scores, gids, scored = self._match_shard_ann(
+                    s, q, cell_ids, ids, ks, dtype, code)
+                cell_rows += scored
+            else:
+                scores, idx = self._match_shard(s, q, ks, dtype, rows)
+                gids = self._shard_ids[s][idx]
+                cell_rows += n_s          # exact: the whole scope scored
             shard_scores.append(scores)
-            shard_gids.append(self._shard_ids[s][idx])
-            cell_rows += n_s          # exact: the whole scope scored
+            shard_gids.append(gids)
         all_s = np.concatenate(shard_scores, axis=1)       # (Q, sum ks)
         all_g = np.concatenate(shard_gids, axis=1)
-        if len(shard_scores) > 1:                          # top-k merge
+        if len(shard_scores) > 1 or mode == "ann":         # top-k merge
             # primary key: score desc; tie-break: global id asc — equal
             # scores order identically for every reshard() topology
             # (sentinel slots sink: NEG scores with id -1)
@@ -322,9 +499,9 @@ class SecureGallery:
             all_g = np.take_along_axis(all_g, top, axis=1)
         self.last_match_stats = {
             "mode": mode, "dtype": dtype, "rows_total": self._n,
-            "centroid_rows": 0, "cell_rows": cell_rows,
-            "rows_scored": cell_rows,
-            "scan_fraction": cell_rows / self._n,
+            "centroid_rows": centroid_rows, "cell_rows": cell_rows,
+            "rows_scored": centroid_rows + cell_rows,
+            "scan_fraction": (centroid_rows + cell_rows) / self._n,
         }
         if tenant is not None:
             self.last_match_stats["tenant"] = tenant
@@ -343,10 +520,12 @@ class SecureGallery:
         The rebuild reads the dead shard's *encrypted-at-rest* blob —
         never a decrypted ``_prep`` view — so failover works after
         ``seal()`` and a crashed lane's plaintext working set is never
-        the recovery source.  Global row ids ride along.  The dead shard
-        stays in the topology as an empty slot — matching a lane group
-        running one replica short until the operator reshards.  Returns
-        the absorbing shard's index."""
+        the recovery source.  Global row ids ride along, so the ANN
+        codebook and per-gid cell assignments survive untouched (the
+        absorbing shard's packed layout rebuilds lazily on its next ANN
+        match).  The dead shard stays in the topology as an empty slot —
+        matching a lane group running one replica short until the
+        operator reshards.  Returns the absorbing shard's index."""
         if not 0 <= dead < self.n_shards:
             raise ValueError(f"no shard {dead}; this gallery has "
                              f"{self.n_shards}")
@@ -375,7 +554,8 @@ class SecureGallery:
 
     def metrics(self) -> dict:
         """Scalar counters for the ``gallery.*`` registry namespace:
-        topology, failovers, and the last match's scan accounting."""
+        topology, failovers, ANN maintenance, and the last match's scan
+        accounting (rows_scored / scan_fraction)."""
         out = {"rows": self._n, "shards": self.n_shards,
                "failovers": self.failovers,
                "ann": dict(self.ann_stats)}
@@ -389,7 +569,9 @@ class SecureGallery:
 
     def reshard(self, n_shards: int):
         """Re-split the gallery across ``n_shards`` shards (mirror the lane
-        group gaining/losing a replica cartridge)."""
+        group gaining/losing a replica cartridge).  The ANN codebook and
+        per-row cell assignments survive untouched — only the per-shard
+        packed layouts are rebuilt (lazily, on next ANN match)."""
         if n_shards < 1:
             raise ValueError("n_shards must be >= 1")
         if self._n == 0:
@@ -410,7 +592,10 @@ class SecureGallery:
     # -- revocation --------------------------------------------------------------
     def rekey(self, new_seed: int, rotation=None):
         """Cancellable biometrics: re-protect the gallery under a new key
-        (``rotation``: an explicit new Q, as in the constructor)."""
+        (``rotation``: an explicit new Q, as in the constructor).  The ANN
+        codebook rides the rotation change (cosine geometry is
+        rotation-invariant), so cell assignments — and recall — survive
+        without retraining or reassignment."""
         assert self._n > 0, "empty gallery"
         raws = []
         for s in range(self.n_shards):
@@ -420,6 +605,10 @@ class SecureGallery:
                 raws.append(self.rotation.unprotect(g.to(self.device)))
             else:
                 raws.append(None)
+        raw_codebook = None
+        if self._ann_blob is not None:
+            raw_codebook = self.rotation.unprotect(
+                torch.from_numpy(self._codebook()).to(self.device))
         self.rotation = KeyedRotation(self.dim, new_seed, rotation)
         self._cipher_key = _cipher_key(new_seed)
         for s, raw in enumerate(raws):
@@ -428,3 +617,8 @@ class SecureGallery:
             self._shards[s] = encrypt_array(self._cipher_key,
                                             self._protect_host(raw))
             self._prep[s] = {}
+        if raw_codebook is not None:
+            codebook = self._protect_host(raw_codebook)
+            self._ann_blob = encrypt_array(self._cipher_key, codebook)
+            self._ann_codebook = codebook
+            self._ann_dev = {}

@@ -27,13 +27,10 @@ Contract (the reference kernel's):
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
+
+from repro_torch.kernels import _build
 
 NEG = -3.0e38
 MAX_K = 64              # the kernel keeps two list entries per lane
@@ -42,51 +39,21 @@ MAX_D = 512             # query tile + gallery tile fit the 227 KB of smem
 # launches of the CUDA kernel (both passes count as one)
 launches = 0
 
-_CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("gallery_match.cu",)
-_BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _lib = None
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("gallery_match: the CUDA kernel needs nvcc, which "
-                           "is not installed")
-    return path
-
-
-def build(verbose: bool = False) -> Path:
-    """Compile ``csrc/`` into ``build/kernels/`` unless a library built from
-    the same sources and flags is already there; returns its path."""
-    h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
-    for name in _SOURCES:
-        h.update((_CSRC / name).read_bytes())
-    out = _BUILD_DIR / f"gallery_match-{h.hexdigest()[:16]}.so"
-    if out.exists():
-        return out
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp),
-           *(str(_CSRC / n) for n in _SOURCES)]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"gallery_match: nvcc failed\n{res.stderr}")
-    if verbose:
-        print(res.stderr, end="")
-    os.replace(tmp, out)
-    return out
+def build(verbose: bool = False):
+    """Compile ``csrc/gallery_match.cu`` into ``build/kernels/`` unless a
+    library built from the same sources and flags is already there;
+    returns its path."""
+    return _build.build("gallery_match", verbose)
 
 
 def _library():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+        lib = _build.library("gallery_match")
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.gm_match.argtypes = [ci, vp, vp, vp, ci, ci, ci, ci, ci, ci,
                                  vp, vp, vp, vp, vp]

@@ -1,14 +1,17 @@
 """Public wrappers for the match kernels.
 
-The port of the reference's ``kernels/ops.py`` match wrappers.  PyTorch runs
-eagerly, so there is nothing to jit: each wrapper prepares its inputs and
-calls the kernel wrapper in ``gallery_match``, which launches the CUDA
-kernel on a CUDA tensor and runs the plain version on a CPU tensor.
+The port of the reference's ``kernels/ops.py`` match and ANN wrappers.
+PyTorch runs eagerly, so there is nothing to jit: each wrapper prepares its
+inputs and calls the kernel wrapper in ``gallery_match`` or ``ann_match``,
+which launches the CUDA kernel on a CUDA tensor and runs the plain version
+on a CPU tensor.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.ann_match import (cell_rescore_cuda,
+                                           centroid_topc_cuda)
 from repro_torch.kernels.gallery_match import (gallery_match_cuda,
                                                gallery_match_quant_cuda,
                                                quantize_gallery)
@@ -43,3 +46,29 @@ def gallery_match_quant(q, g_q, g_scale, *, k: int = 5):
 def prepare_gallery_quant(gn: torch.Tensor):
     """Enrollment-time int8 preparation of a normalized gallery."""
     return quantize_gallery(gn)
+
+
+# -- two-level ANN fast path --------------------------------------------------
+def centroid_topc(q, centroids, *, c: int):
+    """Coarse probe selection: raw queries vs the (K, D) codebook (f32 or
+    bf16 storage), fused query normalization; returns top-``c`` cell ids."""
+    return centroid_topc_cuda(q, centroids, c=c, fuse_norm=True)
+
+
+def centroid_topc_quant(q, c_q, c_scale, *, c: int):
+    """int8-codebook coarse scan (per-row quantized centroids)."""
+    return centroid_topc_cuda(q, c_q, c_scale, c=c, fuse_norm=True)
+
+
+def cell_rescore(q, cells, cell_ids, cell_lens, *, k: int, L: int):
+    """Exact rescore of each query against its probed cells only (f32 or
+    bf16 packed cell-major storage); returns padded positions."""
+    return cell_rescore_cuda(q, cells, cell_ids, cell_lens, k=k, L=L,
+                             fuse_norm=True)
+
+
+def cell_rescore_quant(q, cells_q, cell_scale, cell_ids, cell_lens, *,
+                       k: int, L: int):
+    """int8 packed-cell rescore (per-row quantized, fp32 accumulation)."""
+    return cell_rescore_cuda(q, cells_q, cell_ids, cell_lens, cell_scale,
+                             k=k, L=L, fuse_norm=True)

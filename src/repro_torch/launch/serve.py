@@ -123,9 +123,10 @@ def _apply(module, x):
     return module(x)
 
 
-def make_detector(gen: torch.Generator, device="cpu", weight=None):
-    """The detector cartridge; ``weight`` (OIHW) overrides the draw from
-    ``gen``."""
+def make_detector(gen: torch.Generator, device=None, weight=None):
+    """The detector cartridge on ``device`` (None = the card); ``weight``
+    (OIHW) overrides the draw from ``gen``."""
+    device = resolve_device(device)
     w = _conv_weight(gen, 3, 8) if weight is None else weight
     return FnCartridge("retinaface", _apply, msg.MessageSpec(msg.IMAGE_FRAME),
                        msg.MessageSpec(msg.FACE_CROPS, (64, 64, 3)),
@@ -134,7 +135,9 @@ def make_detector(gen: torch.Generator, device="cpu", weight=None):
                        torch_device=device)
 
 
-def make_quality(gen: torch.Generator, device="cpu"):
+def make_quality(gen: torch.Generator, device=None):
+    """The quality cartridge on ``device`` (None = the card)."""
+    device = resolve_device(device)
     return FnCartridge("crfiqa", _apply, msg.MessageSpec(msg.FACE_CROPS),
                        msg.MessageSpec(msg.FACE_CROPS, (64, 64, 3)),
                        params=Quality(), capability_id=3,
@@ -142,9 +145,11 @@ def make_quality(gen: torch.Generator, device="cpu"):
                        torch_device=device)
 
 
-def make_embedder(gen: torch.Generator, device="cpu", params=None):
-    """The embedder cartridge; ``params`` ({"conv": OIHW, "lin": (1024,
-    EMB_DIM)}) overrides the draws from ``gen``."""
+def make_embedder(gen: torch.Generator, device=None, params=None):
+    """The embedder cartridge on ``device`` (None = the card); ``params``
+    ({"conv": OIHW, "lin": (1024, EMB_DIM)}) overrides the draws from
+    ``gen``."""
+    device = resolve_device(device)
     if params is None:
         params = {"conv": _conv_weight(gen, 3, 16),
                   "lin": torch.randn((16 * 8 * 8, EMB_DIM),
@@ -164,6 +169,11 @@ class WatchlistCartridge(Cartridge):
     queued embedding frames, ``process_batch`` stacks them on the device
     into one ``SecureGallery.match`` call — one gallery-match kernel
     launch per shard per engine service cycle instead of one per frame.
+
+    ``mode="ann"`` routes the coalesced batch through the two-level ANN
+    tier (coarse centroid scan + probed-cell rescore, ``nprobe`` cells
+    per query) — the planet-scale watchlist path; the gallery must have
+    ``build_ann_index()`` called after enrollment.
 
     ``tenant_scoped=True`` (fleet serving): frames are grouped by the
     tenant id they carry and each group matches only against that
@@ -248,12 +258,13 @@ class WatchlistCartridge(Cartridge):
 def build_biometric_pipeline(seed=0, with_quality=True, n_shards=1,
                              match_dtype="fp32", match_mode="exact",
                              nprobe=8, tenant_scoped=False, *, device=None,
-                             params=None, rotation=None):
+                             params=None, rotation=None, gallery=None):
     """The four-stage pipeline and its gallery, on ``device`` (None = the
     card).  Weights are drawn from a CPU generator seeded with ``seed``
     unless ``params`` gives them (``repro_torch.convert`` makes that dict
     from the reference's weights); ``rotation`` is the gallery's explicit
-    Q, likewise."""
+    Q, likewise.  ``gallery``: an existing store to serve in place of a
+    new one (its shards, match dtype and device stand)."""
     device = resolve_device(device)
     _strict_fp32()
     gen = torch.Generator().manual_seed(seed)
@@ -264,9 +275,10 @@ def build_biometric_pipeline(seed=0, with_quality=True, n_shards=1,
         reg.insert(1, make_quality(gen, device))
     reg.insert(2, make_embedder(gen, device, params.get("embedder")))
     # one gallery shard per watchlist replica lane (cartridge scaling)
-    gallery = SecureGallery(EMB_DIM, seed=7, n_shards=n_shards,
-                            match_dtype=match_dtype, device=device,
-                            rotation=rotation)
+    if gallery is None:
+        gallery = SecureGallery(EMB_DIM, seed=7, n_shards=n_shards,
+                                match_dtype=match_dtype, device=device,
+                                rotation=rotation)
     reg.insert(3, WatchlistCartridge(gallery, mode=match_mode,
                                      nprobe=nprobe,
                                      tenant_scoped=tenant_scoped))
@@ -303,23 +315,32 @@ def random_templates(n: int, *, seed: int, device) -> torch.Tensor:
 
 
 def run_biometric(n_frames=30, hotswap=True, *, device=None, n_shards=1,
-                  match_dtype="fp32", distractors=0, params=None,
-                  rotation=None):
+                  match_dtype="fp32", match_mode="exact", nprobe=8,
+                  distractors=0, params=None, rotation=None, gallery=None):
     """The single-operator scenario: enroll 10 subjects (plus
     ``distractors`` random unit templates, a city-scale watchlist), stream
     ``n_frames`` frames through the pipeline, and pull the quality
-    cartridge live at t=1 s when ``hotswap``."""
+    cartridge live at t=1 s when ``hotswap``.  ``match_mode="ann"``
+    matches through the two-level ANN tier, probing ``nprobe`` cells per
+    query; the index is built after enrollment.  ``gallery``: the store
+    to serve; an empty one is enrolled (and, for ANN, indexed) here, one
+    that holds rows is served as it stands, so several runs can share one
+    watchlist."""
     reg, gallery = build_biometric_pipeline(
-        n_shards=n_shards, match_dtype=match_dtype, device=device,
-        params=params, rotation=rotation)
+        n_shards=n_shards, match_dtype=match_dtype, match_mode=match_mode,
+        nprobe=nprobe, device=device, params=params, rotation=rotation,
+        gallery=gallery)
     # enroll: run a few frames through det->quality->embed offline
     src = FrameStream(seed=3)
-    gallery.enroll(_pipeline_embed(reg, src, range(10)),
-                   [f"subject{i}" for i in range(10)])
-    if distractors:
-        gallery.enroll(random_templates(distractors, seed=11,
-                                        device=gallery.device),
-                       ["distractor"] * distractors)
+    subjects = _pipeline_embed(reg, src, range(10))
+    if not len(gallery):
+        gallery.enroll(subjects, [f"subject{i}" for i in range(10)])
+        if distractors:
+            gallery.enroll(random_templates(distractors, seed=11,
+                                            device=gallery.device),
+                           ["distractor"] * distractors)
+    if match_mode == "ann" and not gallery.ann_indexed:
+        gallery.build_ann_index()
 
     eng = StreamEngine(reg, SharedBus(calibrated("ncs2")),
                        execute_payloads=True)

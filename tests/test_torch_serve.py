@@ -31,6 +31,7 @@ from repro.kernels import ref as R
 from repro.launch import serve as ref_serve
 from repro_torch import convert
 from repro_torch.crypto import SecureGallery
+from repro_torch.device import resolve_device
 from repro_torch.launch import serve
 
 TOL = 1e-5
@@ -180,13 +181,24 @@ def test_secure_gallery_matches_reference(reference_match, dtype):
     assert port.metrics() == ref.metrics()
 
 
-def test_ann_mode_waits_for_its_slice():
-    g = SecureGallery(16, device="cpu")
-    g.enroll(np.eye(16, dtype=np.float32), list("abcdefghijklmnop"))
-    with pytest.raises(NotImplementedError, match="next slice"):
-        g.build_ann_index()
-    with pytest.raises(NotImplementedError, match="next slice"):
-        g.match(np.ones((1, 16), np.float32), mode="ann")
+@pytest.mark.parametrize("factory", ["make_detector", "make_quality",
+                                     "make_embedder"])
+def test_stage_factories_default_to_the_card(factory):
+    """``device=None`` is the card, as for every other entry point: on a
+    host without one the factory raises as ``resolve_device`` does, and
+    ``device="cpu"`` still builds the stage."""
+    make = getattr(serve, factory)
+    if torch.cuda.is_available():
+        assert make(torch.Generator()).torch_device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError) as want:
+            resolve_device(None)
+        with pytest.raises(RuntimeError) as got:
+            make(torch.Generator())
+        assert str(got.value) == str(want.value)
+    cart = make(torch.Generator().manual_seed(0), device="cpu")
+    assert cart.torch_device == torch.device("cpu")
+    assert all(p.device.type == "cpu" for p in cart.params.parameters())
 
 
 def _serve_line(out: str, tag: str) -> str:
