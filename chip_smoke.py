@@ -6,7 +6,7 @@
 Phases, each printing its lines; any failure exits non-zero:
 
 1. card: the GPU's name and power limit, from nvidia-smi;
-2. build: compile both CUDA kernels from ``src/repro_torch/kernels/csrc``
+2. build: compile the four CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one nvcc each for sm_90a, started together) and print each build time;
 3. gallery-match kernel vs plain: the kernel against its plain PyTorch
    version on the card, for fp32, bf16 and int8 galleries at Q in
@@ -22,14 +22,43 @@ Phases, each printing its lines; any failure exits non-zero:
    rows, empty cells, D = 36 and 260, a misaligned array and equal rows
    in two probed cells; then its and the plain version's device times at
    the serving shape (Q = 1, c = 8, k = 1) beside the bound;
-5. exact main path: ``run_biometric`` on the card once per match dtype,
+5. flash-attention kernel vs plain: in fp32 and bf16, on the CPU tests'
+   shapes (GQA, MQA, bidirectional, window 128, S = 384, 192/128 head
+   dims, D = 80, Sq < Sk) and the two serving shapes, (8, 32, 2048, 80)
+   MHA and (8, 32/4, 2048, 64) GQA, these as the model's strided
+   (B, S, H, D) views; bf16 outputs are held element by element, relative
+   to one bf16 ulp and the row's RMS, and every check must also reject a
+   planted 5 % error on the later positions; then the kernel's, the plain
+   version's and ``F.scaled_dot_product_attention``'s device times at the
+   serving shapes beside the bound;
+6. SSD kernel vs plain: y and the final state on the CPU tests' shapes in
+   fp32 and bf16, and at the serving shape (8, 2048, 80, 64), N = 64,
+   chunk 256, as the model's strided slices; then the kernel's and the
+   plain version's device times there beside the bound;
+7. the reference check: the biometric stages on the card vs on the CPU;
+8. exact main path: ``run_biometric`` on the card once per match dtype,
    over a 4-shard watchlist of the 10 pipeline subjects plus 1,048,576
    random unit distractors (512 MiB of fp32 templates), 30 frames with the
    live hot-swap; then ``run_fleet`` for 3 s of offered traffic;
-6. ANN main path: one such watchlist, indexed once (1024 cells), served by
+9. ANN main path: one such watchlist, indexed once (1024 cells), served by
    ``run_biometric(match_mode="ann", nprobe=8)`` once per match dtype; the
    served labels are held against the plain versions run on the kernels'
-   own probe tables.
+   own probe tables;
+10. LM main path: ``run_lm`` serving full-width ``zamba2-2.7b`` and then
+   ``tinyllama-1.1b`` (weights drawn on the card from a seeded generator),
+   batch 8, prompt 2048, 32 generated tokens, in bf16 and then in fp32;
+   each run must launch the SSD kernel once per Mamba-2 layer and the
+   flash kernel once per attention application; the first call of each
+   kernel and of each layer holding one in a prefill is rerun on its
+   recorded inputs with the plain versions and with a planted fault, and
+   must agree with the first and reject the second; the prefill logits
+   and the teacher-forced decode logits are held against the same model
+   run with the kernels' plain versions (bf16 runs against an fp32 run of
+   the same weights), and the token agreement is printed with the prefill
+   time, decode rate and peak memory from ``run_lm``'s own line; then
+   where the time goes: the teacher-forced run's prefill and decode
+   device time split by kernel (profiler traces) against ``run_lm``'s
+   wall times.
 Each run of a main path sets the kernels' launch counts to 0 just before
 it and reads them just after.
 
@@ -39,7 +68,13 @@ limit and a JSON object with each kernel's numbers; the final line is
 """
 from __future__ import annotations
 
+import contextlib
+import copy
+import gc
+import io
 import json
+import re
+import statistics
 import subprocess
 import sys
 import time
@@ -59,6 +94,39 @@ N_BIG = 262_144
 DISTRACTORS = 1_048_576
 SHARDS = 4
 DTYPES = ("fp32", "bf16", "int8")
+LM_DTYPES = ("bf16", "fp32")
+LM_ARCHS = ("zamba2-2.7b", "tinyllama-1.1b")
+LM_BATCH, LM_PROMPT, LM_GEN = 8, 2048, 32
+# flash kernel vs plain (flash_err): in fp32 the max abs error, as the
+# outputs agree to rounding; in bf16 each output is rounded to bf16 and the
+# kernel rounds its probabilities before normalising them, the plain version
+# after, so an element may differ by one bf16 ulp of itself (2^-7 |p|) and
+# by a share of its row's RMS, the bound on that share (readings in PERF.md)
+FLASH_TOL = {"fp32": 1e-5, "bf16": 0.03}
+# the SSD is held to its reference tests' allclose bounds
+SSD_ATOL, SSD_RTOL = 2e-4, 1e-3
+# a planted fault that every check of a kernel must catch: the outputs of
+# the later half of the positions made PLANT times too large
+PLANT = 1.05
+# the first call of each kernel and of each layer that holds one in a
+# prefill at full width, rerun on its recorded inputs with the plain
+# versions: the flash kernel's output as above, the SSD's y and state by
+# the Frobenius norm of the difference relative to the plain output's
+# (SSD_REL; fp32 math on both sides), the layers' outputs by the same norm
+# (LAYER_TOL).  With random weights the SSD adds ~3e-4 of the Mamba-2
+# layer's signal, so that layer's bounds are small; each bound sits between
+# the readings of the kernels and of a planted fault (PERF.md)
+SSD_REL = 1e-4
+LAYER_TOL = {("gqa_fwd", "fp32"): 1e-5, ("gqa_fwd", "bf16"): 7.5e-3,
+             ("mamba2_fwd", "fp32"): 1e-6, ("mamba2_fwd", "bf16"): 1e-5}
+# kernels vs plain through the whole model, logits relative to max |logit|:
+# in fp32 the two agree to rounding (LM_REL); in bf16 two roundings of a
+# 54-layer model with random weights drift apart by a few percent, so each
+# is measured against an fp32 run of the same weights, and the kernels' run
+# may stray at most LM_BF16_RATIO times as far as the plain versions' run
+# (the layer check above is the tight one)
+LM_REL = 1e-4
+LM_BF16_RATIO = 1.5
 CELLS = 1024            # cells of one N_BIG shard at the index's sqrt(N)
 NPROBE = 8              # the serving path's probes per query
 DEV = "cuda"
@@ -141,18 +209,20 @@ def compare(torch, gm, dtype, Q, N, k, gen, D=128, misalign=False):
     return err
 
 
-def _kernel_us(prof) -> float:
-    """Total device time of the kernels in a profile, in microseconds."""
+def _kernel_us(prof):
+    """(number of kernels, their total device time in microseconds) in a
+    profile."""
     from torch.autograd import DeviceType
-    total = 0.0
+    count, total = 0, 0.0
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
+            count += e.count
             total += getattr(e, "self_device_time_total", None) or \
                 getattr(e, "self_cuda_time_total", 0.0)
-    return total
+    return count, total
 
 
-def timed(torch, fn, galleries, iters=10):
+def timed(torch, fn, galleries, iters=10, traces=1):
     """(device ms, call ms) of one call of ``fn(*args)``, ``args`` taken in
     turn from ``galleries``.
 
@@ -160,7 +230,11 @@ def timed(torch, fn, galleries, iters=10):
     as the serving path's four shards do, so no call finds its gallery in
     the 50 MB L2 cache.  Device ms is the kernels' own time, summed from a
     ``torch.profiler`` trace; call ms is CUDA events around back-to-back
-    calls, so it also holds any time the card waits on the host."""
+    calls, so it also holds any time the card waits on the host.  A trace
+    of a few long launches can come back one kernel short (seen on the
+    H100: five 15 ms launches read 20 % short while CUDA events read them
+    whole), so the LM kernels' timings trace ``traces`` windows and take
+    the median over those with the most kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     def rounds(n):
@@ -178,10 +252,14 @@ def timed(torch, fn, galleries, iters=10):
     e1.synchronize()
     n = iters * len(galleries)
     call_ms = e0.elapsed_time(e1) / n
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        rounds(iters)
-        torch.cuda.synchronize()
-    dev_us = _kernel_us(prof)
+    windows = []
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            rounds(iters)
+            torch.cuda.synchronize()
+        windows.append(_kernel_us(prof))
+    most = max(c for c, _ in windows)
+    dev_us = statistics.median(us for c, us in windows if c == most)
     if dev_us <= 0.0:
         raise AssertionError("the profiler saw no device time")
     return dev_us / n / 1e3, call_ms
@@ -710,6 +788,493 @@ def phase_reference(torch, serve):
           f"{err:.3g} (tolerance {TOL})")
 
 
+# (B, H, Kh, Sq, Sk, D, Dv, causal, window): the CPU tests' flash shapes
+FLASH_SHAPES = [(1, 2, 2, 128, 128, 64, 64, True, 0),
+                (2, 4, 2, 256, 256, 64, 64, True, 0),
+                (1, 8, 1, 512, 512, 128, 128, True, 0),
+                (2, 2, 2, 256, 256, 64, 64, False, 0),
+                (1, 4, 4, 512, 512, 64, 64, True, 128),
+                (1, 2, 2, 384, 384, 32, 32, True, 0),
+                (1, 2, 2, 256, 256, 192, 128, True, 0),
+                (1, 4, 2, 512, 512, 80, 80, True, 0),
+                (2, 4, 2, 100, 300, 64, 64, True, 0)]
+# the serving shapes: zamba2's shared block (MHA) and tinyllama (GQA)
+FLASH_SERVE = {"mha": (8, 32, 32, 2048, 2048, 80, 80, True, 0),
+               "gqa": (8, 32, 4, 2048, 2048, 64, 64, True, 0)}
+# (Bt, L, H, P, N, chunk): the CPU tests' SSD shapes, then zamba2's
+SSD_SHAPES = [(1, 128, 1, 16, 8, 64), (2, 256, 3, 32, 16, 128),
+              (1, 512, 2, 64, 32, 256), (2, 64, 4, 8, 8, 64),
+              (2, 1024, 2, 16, 8, 256)]
+SSD_SERVE = (8, 2048, 80, 64, 64, 256)
+TORCH_DTYPE = {"fp32": "float32", "bf16": "bfloat16"}
+
+
+def flash_inputs(torch, shape, dtype, gen, model_layout=False):
+    """q, k, v for one shape; ``model_layout`` makes them the transposed
+    views of (B, S, H, D) tensors that the model passes."""
+    B, H, Kh, Sq, Sk, D, Dv = shape[:7]
+    dt = getattr(torch, TORCH_DTYPE[dtype])
+
+    def rn(b, h, s, d, scale):
+        if model_layout:
+            x = torch.randn((b, s, h, d), generator=gen, device=DEV)
+            return (x * scale).to(dt).transpose(1, 2)
+        x = torch.randn((b, h, s, d), generator=gen, device=DEV)
+        return (x * scale).to(dt)
+
+    return rn(B, H, Sq, D, 0.3), rn(B, Kh, Sk, D, 0.3), rn(B, Kh, Sk, Dv, 1.0)
+
+
+def flash_work(shape, dtype):
+    """(bytes, operations) one attention call needs: q, k, v read once and
+    o written once; 2 (D + Dv) flops for each (query, key) pair the masks
+    keep (causal, Sq = Sk: S (S + 1) / 2 pairs a head)."""
+    B, H, Kh, Sq, Sk, D, Dv, causal, window = shape
+    item = 4 if dtype == "fp32" else 2
+    nbytes = item * (B * H * Sq * (D + Dv) + B * Kh * Sk * (D + Dv))
+    assert window == 0 and (not causal or Sq == Sk)
+    pairs = Sq * (Sq + 1) // 2 if causal else Sq * Sk
+    return nbytes, 2.0 * B * H * pairs * (D + Dv)
+
+
+def flash_err(torch, o, p, dtype):
+    """The flash kernel's output ``o`` against the plain version's ``p``:
+    in fp32 the max abs error; in bf16 the largest excess of |o - p| over
+    one bf16 ulp of p (2^-7 |p|), in units of p's row (query) RMS."""
+    d = (o.float() - p.float()).abs()
+    if dtype == "fp32":
+        return float(d.max())
+    pf = p.float()
+    rms = pf.square().mean(-1, keepdim=True).sqrt().clamp(min=1e-30)
+    return float(((d - 2.0 ** -7 * pf.abs()) / rms).max())
+
+
+def planted(o):
+    """``o`` (B, H, S, D) with the later half of the positions PLANT times
+    too large, in place."""
+    o[:, :, o.shape[2] // 2:] *= PLANT
+    return o
+
+
+def phase_flash(torch, FA):
+    import torch.nn.functional as F
+    gen = torch.Generator(device=DEV).manual_seed(2024)
+    errs, timings = {}, {}
+    for dtype in LM_DTYPES:
+        err, abs_err, caught, n = 0.0, 0.0, [], 0
+        cases = [(sh, False) for sh in FLASH_SHAPES] + \
+            [(sh, True) for sh in FLASH_SERVE.values()]
+        for shape, model_layout in cases:
+            causal, window = shape[7], shape[8]
+            q, k, v = flash_inputs(torch, shape, dtype, gen, model_layout)
+            o = FA.flash_attention_cuda(q, k, v, causal=causal,
+                                        window=window)
+            torch.cuda.synchronize()
+            p = FA.flash_attention_plain(q, k, v, causal=causal,
+                                         window=window)
+            if o.dtype != q.dtype or o.shape != p.shape or \
+                    not bool(torch.isfinite(o).all()):
+                raise AssertionError(f"flash {dtype} {shape}: {o.dtype} "
+                                     f"{tuple(o.shape)} or not finite")
+            e = flash_err(torch, o, p, dtype)
+            if not e <= FLASH_TOL[dtype]:
+                raise AssertionError(f"flash {dtype} {shape}: error {e} "
+                                     f"(tolerance {FLASH_TOL[dtype]})")
+            # the check must catch a 5 % error on the later positions
+            e_bad = flash_err(torch, planted(p.clone()), p, dtype)
+            if not e_bad > FLASH_TOL[dtype]:
+                raise AssertionError(f"flash {dtype} {shape}: a planted "
+                                     f"fault reads {e_bad}, within the "
+                                     "tolerance")
+            err, n = max(err, e), n + 1
+            abs_err = max(abs_err, float((o.float() - p.float()).abs().max()))
+            caught.append(e_bad)
+            del q, k, v, o, p
+        errs[dtype] = abs_err
+        what = "max abs error" if dtype == "fp32" else \
+            "max excess over 2^-7 |p| per row RMS"
+        print(f"[flash] {dtype}: kernel == plain on {n} shapes, {what} "
+              f"{err:.3g} (tolerance {FLASH_TOL[dtype]}; max abs error "
+              f"{abs_err:.3g}); a planted {PLANT - 1:.0%} error on the later "
+              f"positions reads {min(caught):.3g} or more")
+        for name, shape in FLASH_SERVE.items():
+            args = [flash_inputs(torch, shape, dtype, gen, True)]
+            gqa = shape[1] != shape[2]
+            kms, kcall = timed(torch, lambda q, k, v: FA.flash_attention_cuda(
+                q, k, v), args, iters=5, traces=3)
+            pms, _ = timed(torch, lambda q, k, v: FA.flash_attention_plain(
+                q, k, v), args, iters=3, traces=3)
+            lms, _ = timed(torch, lambda q, k, v: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=gqa), args, iters=5,
+                traces=3)
+            bms, by = work_bound(dtype, *flash_work(shape, dtype))
+            timings[(dtype, name)] = (kms, pms, lms, bms, by)
+            print(f"[flash] {dtype} {name} {shape[:7]}: kernel_ms={kms:.4f} "
+                  f"(per call {kcall:.4f}) plain_ms={pms:.4f} "
+                  f"library_ms={lms:.4f} bound_ms={bms:.4f} ({by})")
+            del args
+    return errs, timings
+
+
+def ssd_inputs(torch, shape, dtype, gen, model_layout=False):
+    """x, dt, A, B, C for one shape; ``model_layout`` cuts x, B and C out
+    of one (Bt, L, H*P + 2N) buffer, as the model's conv output is cut."""
+    Bt, L, H, P, N = shape[:5]
+    dt_ = getattr(torch, TORCH_DTYPE[dtype])
+    F = torch.nn.functional
+    if model_layout:
+        buf = torch.randn((Bt, L, H * P + 2 * N), generator=gen, device=DEV)
+        buf[..., H * P:] *= 0.3
+        buf = buf.to(dt_)
+        x = buf[..., :H * P].reshape(Bt, L, H, P)
+        Bm, Cm = buf[..., H * P:H * P + N], buf[..., H * P + N:]
+    else:
+        x = torch.randn((Bt, L, H, P), generator=gen, device=DEV).to(dt_)
+        Bm = (torch.randn((Bt, L, N), generator=gen, device=DEV) * 0.3
+              ).to(dt_)
+        Cm = (torch.randn((Bt, L, N), generator=gen, device=DEV) * 0.3
+              ).to(dt_)
+    dt = F.softplus(torch.randn((Bt, L, H), generator=gen,
+                                device=DEV)) * 0.1
+    A = -F.softplus(torch.randn((H,), generator=gen, device=DEV))
+    return x, dt, A, Bm, Cm
+
+
+def ssd_work(shape, dtype):
+    """(bytes, operations) one scan needs: x, dt, A, B, C read once, y and
+    the state written once (fp32); for each (sequence, chunk) C B^T over
+    the c (c + 1) / 2 pairs t >= s (it does not depend on the head), and
+    for each head the masked product with x dt over the same pairs, the
+    carried state's part of y and the state update (2 c P N flops each)."""
+    Bt, L, H, P, N, c = shape
+    item = 4 if dtype == "fp32" else 2
+    nc = L // c
+    nbytes = (item * (Bt * L * H * P + 2 * Bt * L * N) + 4 * Bt * L * H
+              + 4 * H + 4 * Bt * L * H * P + 4 * Bt * H * P * N)
+    pairs = c * (c + 1) // 2
+    ops = 2.0 * Bt * nc * pairs * N + \
+        Bt * H * nc * (2.0 * pairs * P + 4.0 * c * P * N)
+    return nbytes, ops
+
+
+def phase_ssd(torch, SSD):
+    gen = torch.Generator(device=DEV).manual_seed(77)
+    err, n = 0.0, 0
+    for dtype in LM_DTYPES:
+        cases = [(sh, False) for sh in SSD_SHAPES] + [(SSD_SERVE, True)]
+        for shape, model_layout in cases:
+            x, dt, A, Bm, Cm = ssd_inputs(torch, shape, dtype, gen,
+                                          model_layout)
+            y, st = SSD.mamba2_ssd_cuda(x, dt, A, Bm, Cm, chunk=shape[5])
+            torch.cuda.synchronize()
+            yp, sp = SSD.mamba2_ssd_plain(x, dt, A, Bm, Cm,
+                                          chunk=min(shape[5], shape[1]))
+            for got, want, what in ((y, yp, "y"), (st, sp, "state")):
+                if got.shape != want.shape or \
+                        not bool(torch.isfinite(got).all()) or \
+                        not torch.allclose(got, want, atol=SSD_ATOL,
+                                           rtol=SSD_RTOL):
+                    raise AssertionError(f"ssd {dtype} {shape}: {what} "
+                                         "differs from the plain version's")
+                err = max(err, float((got - want).abs().max()))
+            n += 1
+            del x, dt, Bm, Cm, y, st, yp, sp
+    print(f"[ssd] kernel == plain (y and state) on {n} inputs, max abs "
+          f"error {err:.3g} (atol {SSD_ATOL}, rtol {SSD_RTOL})")
+    args = [ssd_inputs(torch, SSD_SERVE, "bf16", gen, True)]
+    kms, kcall = timed(torch, lambda *a: SSD.mamba2_ssd_cuda(*a), args,
+                       iters=5, traces=3)
+    pms, _ = timed(torch, lambda *a: SSD.mamba2_ssd_plain(
+        *a, chunk=SSD_SERVE[5]), args, iters=3, traces=3)
+    bms, by = work_bound("fp32", *ssd_work(SSD_SERVE, "bf16"))
+    print(f"[ssd] bf16 {SSD_SERVE}: kernel_ms={kms:.4f} (per call "
+          f"{kcall:.4f}) plain_ms={pms:.4f} library_ms=n/a "
+          f"bound_ms={bms:.4f} ({by}, fp32 FMA peak)")
+    return err, (kms, pms, bms, by)
+
+
+class Kernels:
+    """Within the block, the model's kernel wrappers ``ops.flash_attention``
+    and ``ops.mamba2_ssd`` are ``flash`` and ``ssd``."""
+
+    def __init__(self, ops, flash, ssd):
+        self.ops, self.fns = ops, (flash, ssd)
+
+    def __enter__(self):
+        self.saved = (self.ops.flash_attention, self.ops.mamba2_ssd)
+        self.ops.flash_attention, self.ops.mamba2_ssd = self.fns
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.flash_attention, self.ops.mamba2_ssd = self.saved
+
+
+def plain_kernels(ops, FA, SSD):
+    """The model runs the kernels' plain versions on the card instead."""
+    return Kernels(
+        ops, lambda q, k, v, *, causal=True, window=0:
+        FA.flash_attention_plain(q, k, v, causal=causal, window=window),
+        lambda x, dt, A, B, C: SSD.mamba2_ssd_plain(
+            x, dt, A, B, C, chunk=min(256, x.shape[1])))
+
+
+def planted_kernels(ops):
+    """The model runs the kernels with a planted fault: their outputs at
+    the later half of the positions PLANT times too large."""
+    flash, ssd = ops.flash_attention, ops.mamba2_ssd
+
+    def bad_ssd(*a):
+        y, state = ssd(*a)
+        y[:, y.shape[1] // 2:] *= PLANT
+        return y, state
+
+    return Kernels(ops, lambda *a, **kw: planted(flash(*a, **kw)), bad_ssd)
+
+
+class FirstCalls:
+    """Within the block, keeps the arguments of the first call of each
+    ``module.name`` of ``fns`` (a list of (module, name)), by name."""
+
+    def __init__(self, fns):
+        self.fns, self.calls = fns, {}
+
+    def __enter__(self):
+        self.saved = [getattr(mod, name) for mod, name in self.fns]
+        for (mod, name), orig in zip(self.fns, self.saved):
+            def call(*a, _fn=orig, _mod=mod, _name=name, **kw):
+                self.calls.setdefault(_name, (_mod, a, kw))
+                return _fn(*a, **kw)
+            setattr(mod, name, call)
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name), orig in zip(self.fns, self.saved):
+            setattr(mod, name, orig)
+
+
+def rel_fro(torch, got, want):
+    """The Frobenius norm of ``got - want`` relative to ``want``'s."""
+    want = want.float()
+    return float(torch.linalg.vector_norm(got.float() - want)
+                 / torch.linalg.vector_norm(want))
+
+
+def first_call_tol(name, dtype):
+    if name == "flash_attention":
+        return FLASH_TOL[dtype]
+    return SSD_REL if name == "mamba2_ssd" else LAYER_TOL[(name, dtype)]
+
+
+def first_call_check(torch, ops, FA, SSD, calls, dtype):
+    """Each recorded call rerun on its recorded inputs with the kernels,
+    with their plain versions and with a planted fault: {name: (error,
+    planted error, tolerance)}.  The flash kernel's output is measured by
+    ``flash_err``, the SSD's y and state and a layer's output by their
+    relative Frobenius error (``rel_fro``), each against the plain
+    versions' run."""
+    out = {}
+    for name, (mod, a, kw) in calls.items():
+        def run():
+            with torch.inference_mode():
+                return getattr(mod, name)(*a, **kw)
+
+        def err(got):
+            if name == "flash_attention":
+                return flash_err(torch, got, want, dtype)
+            if name == "mamba2_ssd":
+                return max(rel_fro(torch, g, w) for g, w in zip(got, want))
+            return rel_fro(torch, got[0], want[0])
+
+        with plain_kernels(ops, FA, SSD):
+            want = run()
+        e = err(run())
+        with planted_kernels(ops):
+            e_bad = err(run())
+        out[name] = (e, e_bad, first_call_tol(name, dtype))
+        del want
+    return out
+
+
+def lm_config(arch):
+    from repro_torch.configs import base as cb
+    return cb.get(arch)
+
+
+def max_rel(got, want):
+    """The largest error of a list of logits against another, relative to
+    each step's max |logit|."""
+    return max(float((a - b).abs().max() / (b.abs().max() + 1e-6))
+               for a, b in zip(got, want))
+
+
+def device_split(torch, fn):
+    """Device ms of one ``fn()`` from a ``torch.profiler`` trace: the total
+    and its flash-kernel and SSD-kernel shares."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    split = {"total": 0.0, "flash": 0.0, "ssd": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None) or \
+            getattr(e, "self_cuda_time_total", 0.0)
+        split["total"] += us / 1e3
+        for key, tag in (("flash", "flash_fwd_kernel"), ("ssd", "ssd_kernel")):
+            if tag in e.key:
+                split[key] += us / 1e3
+    return split
+
+
+def teacher_forced(torch, serve, mdl, params, cfg, tokens, toks, split=None):
+    """Prefill logits, then the logits of each decode step fed the served
+    tokens ``toks``: a list of (B, V) fp32 tensors.  ``split``, a dict,
+    gets the prefill's and the decode steps' device ms, each split by
+    kernel (profiler traces)."""
+    S, box, out = tokens.shape[1], {}, []
+
+    def prefill():
+        box["last"], box["cache"] = serve.prefill_cache(
+            params, cfg, tokens, S + toks.shape[1])
+
+    def decode():
+        cache = box["cache"]
+        for i in range(toks.shape[1] - 1):
+            logits, cache = mdl.decode_step(params, cfg, toks[:, i:i + 1],
+                                            S + i, cache)
+            out.append(logits.float())
+
+    with torch.inference_mode():
+        for stage, fn in (("prefill", prefill), ("decode", decode)):
+            if split is None:
+                fn()
+            else:
+                split[stage] = device_split(torch, fn)
+    return [box["last"].float()] + out
+
+
+def served(torch, serve, cfg, params, tokens):
+    """``run_lm`` on the card: (tokens, prefill ms, decode ms per step),
+    the times read from the line ``run_lm`` prints."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        toks = serve.run_lm(cfg=cfg, params=params, tokens=tokens,
+                            gen=LM_GEN, device=DEV)
+    line = buf.getvalue()
+    print(line, end="")
+    m = re.search(r"prefill in ([0-9.]+) ms \(([0-9.]+) tok/s", line)
+    return toks, float(m[1]), LM_BATCH / float(m[2]) * 1e3
+
+
+def phase_lm(torch, serve, FA, SSD):
+    from repro_torch.kernels import ops
+    from repro_torch.launch import specs as sp
+    from repro_torch.models import attention, ssm
+    from repro_torch.models import model as mdl
+    launches = {"flash_attention[fp32]": 0, "flash_attention[bf16]": 0,
+                "mamba2_ssd": 0}
+    for dtype in LM_DTYPES:
+        for arch in LM_ARCHS:
+            cfg = lm_config(arch)
+            t0 = time.perf_counter()
+            gen = torch.Generator(device=DEV).manual_seed(0)
+            params = mdl.init(cfg, gen, getattr(torch, TORCH_DTYPE[dtype]),
+                              DEV)
+            tokens = sp.make_batch(cfg, LM_PROMPT, LM_BATCH, gen,
+                                   device=DEV)["tokens"]
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            gc.collect()        # earlier phases' cycles (a gallery) off the card
+            torch.cuda.reset_peak_memory_stats()
+            FA.launches = SSD.launches = 0
+            toks, prefill_ms, step_ms = served(torch, serve, cfg, params,
+                                               tokens)
+            n_fa, n_ssd = FA.launches, SSD.launches
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            n_mamba = cfg.n_layers if cfg.family == "hybrid" else 0
+            n_attn = cfg.n_superblocks
+            if (n_fa, n_ssd) != (n_attn, n_mamba):
+                raise AssertionError(f"lm {arch} {dtype}: launches flash="
+                                     f"{n_fa} ssd={n_ssd}, want {n_attn} "
+                                     f"and {n_mamba}")
+            launches[f"flash_attention[{dtype}]"] += n_fa
+            launches["mamba2_ssd"] += n_ssd
+            if tuple(toks.shape) != (LM_BATCH, LM_GEN) or \
+                    int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+                raise AssertionError(f"lm {arch} {dtype}: tokens "
+                                     f"{tuple(toks.shape)}")
+            # the kernels' teacher-forced run, traced, recording the inputs
+            # of the first call of each kernel and of each layer holding one
+            split = {}
+            first = [(ops, "flash_attention"), (attention, "gqa_fwd")]
+            if n_mamba:
+                first += [(ops, "mamba2_ssd"), (ssm, "mamba2_fwd")]
+            with FirstCalls(first) as rec:
+                kern = teacher_forced(torch, serve, mdl, params, cfg, tokens,
+                                      toks, split)
+            with plain_kernels(ops, FA, SSD):
+                plain = teacher_forced(torch, serve, mdl, params, cfg,
+                                       tokens, toks)
+            for i, a in enumerate(kern):
+                if not (bool(torch.isfinite(a).all()) and a.shape ==
+                        (LM_BATCH, cfg.vocab_size)):
+                    raise AssertionError(f"lm {arch} {dtype}: step {i} "
+                                         "logits not finite")
+            firsts = first_call_check(torch, ops, FA, SSD, rec.calls, dtype)
+            del rec
+            for name, (e, e_bad, tol) in firsts.items():
+                if not e <= tol < e_bad:
+                    raise AssertionError(
+                        f"lm {arch} {dtype}: first {name} kernels vs plain "
+                        f"{e}, planted fault {e_bad} (tolerance {tol})")
+            agree = sum(int((b.argmax(-1) == toks[:, i]).sum())
+                        for i, b in enumerate(plain))
+            rel = max_rel(kern, plain)
+            if dtype == "fp32":
+                check = f"tolerance {LM_REL}"
+                ok = rel <= LM_REL
+            else:
+                p32 = copy.deepcopy(params).float()
+                truth = teacher_forced(torch, serve, mdl, p32, cfg, tokens,
+                                       toks)
+                del p32
+                err_k, err_p = max_rel(kern, truth), max_rel(plain, truth)
+                check = (f"vs fp32 weights: kernels {err_k:.3g}, plain "
+                         f"{err_p:.3g} (at most {LM_BF16_RATIO}x plain)")
+                ok = err_k <= LM_BF16_RATIO * err_p
+            if not ok:
+                raise AssertionError(f"lm {arch} {dtype}: kernel logits vs "
+                                     f"plain {rel}; {check}")
+            first_txt = ", ".join(
+                f"{name} {e:.3g} (tolerance {tol}, planted fault "
+                f"{e_bad:.3g})" for name, (e, e_bad, tol) in firsts.items())
+            print(f"[lm] {arch} {dtype}: batch {LM_BATCH}, prompt "
+                  f"{LM_PROMPT}, gen {LM_GEN}: launches flash={n_fa} "
+                  f"ssd={n_ssd}; prefill_ms={prefill_ms:.1f} "
+                  f"decode_tok_s={LM_BATCH / step_ms * 1e3:.1f} "
+                  f"peak_mem_gib={peak:.2f}; first calls in prefill, "
+                  f"kernels vs plain: {first_txt}; teacher-forced logits, "
+                  f"max rel err kernels "
+                  f"vs plain {rel:.3g}, {check}; plain argmax == served "
+                  f"token {agree}/{toks.numel()}; weights made in "
+                  f"{init_s:.1f} s")
+            pre, dec = split["prefill"], split["decode"]
+            step_dev = dec["total"] / (LM_GEN - 1)
+            print(f"[lm-time] {arch} {dtype}: prefill device_ms="
+                  f"{pre['total']:.1f} (flash {pre['flash']:.1f}, ssd "
+                  f"{pre['ssd']:.1f}, other "
+                  f"{pre['total'] - pre['flash'] - pre['ssd']:.1f}) of "
+                  f"wall_ms={prefill_ms:.1f}; decode step device_ms="
+                  f"{step_dev:.2f} of wall_ms={step_ms:.2f} (device idle "
+                  f"{1 - step_dev / step_ms:.1%})")
+            del params, tokens, toks, kern, plain
+            torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -721,19 +1286,24 @@ def main() -> int:
         return fail(f"the port's sources are not under {SRC}")
     sys.path.insert(0, str(SRC))
     from repro_torch.kernels import ann_match as A
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import gallery_match as gm
+    from repro_torch.kernels import mamba2_ssd as SSD
     from repro_torch.launch import serve
 
     card = card_line()
     print(f"[card] {card}")
-    phase_build([gm, A])
+    phase_build([gm, A, FA, SSD])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     errs, timings = phase_kernel(torch, gm)
     r_errs, r_timings = phase_rescore(torch, gm, A)
+    f_errs, f_timings = phase_flash(torch, FA)
+    s_err, s_timing = phase_ssd(torch, SSD)
     phase_reference(torch, serve)
     launches = phase_main(torch, gm, serve)
     ann_launches, _ = phase_ann(torch, gm, A, serve)
+    lm_launches = phase_lm(torch, serve, FA, SSD)
 
     kernels = []
     for dtype in DTYPES:
@@ -756,6 +1326,30 @@ def main() -> int:
             "ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
             "library_ms": None,
             "shape": f"Q=1 c={NPROBE} K={CELLS} D=128 k=1"})
+    for dtype in LM_DTYPES:
+        name = f"flash_attention[{dtype}]"
+        kms, pms, lms, bms, by = f_timings[(dtype, "mha")]
+        g = f_timings[(dtype, "gqa")]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:95",
+            "launches": lm_launches[name], "max_abs_err": f_errs[dtype],
+            "ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+            "library_ms": lms,
+            "shape": "B=8 H=32 Kh=32 S=2048 D=80 causal",
+            "gqa": {"shape": "B=8 H=32 Kh=4 S=2048 D=64 causal",
+                    "ms": g[0], "plain_ms": g[1], "library_ms": g[2],
+                    "bound_ms": g[3], "bound_by": g[4]}})
+    kms, pms, bms, by = s_timing
+    kernels.append({
+        "name": "mamba2_ssd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mamba2_ssd.cu",
+        "replaces": "src/repro/kernels/mamba2_ssd.py:82",
+        "launches": lm_launches["mamba2_ssd"], "max_abs_err": s_err,
+        "ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+        "library_ms": None,
+        "shape": "Bt=8 L=2048 H=80 P=64 N=64 chunk=256 bf16"})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

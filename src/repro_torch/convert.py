@@ -9,7 +9,10 @@ the port's modules and a ``SecureGallery`` that compute the same:
   features in that order;
 * the gallery's rotation Q (the encrypted blobs themselves do not carry
   over: the two at-rest ciphers differ), and the enrolled raw templates,
-  labels and tenants, which are enrolled again in the same order.
+  labels and tenants, which are enrolled again in the same order;
+* an LM's parameter tree (``lm_params``): the reference stacks every
+  block's parameters on a leading axis (two for the hybrid's Mamba-2
+  layers: superblock, then layer), the port holds one module per block.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.crypto import SecureGallery
+from repro_torch.models import model as mdl
 
 
 def conv_weight(w_hwio) -> torch.Tensor:
@@ -50,3 +54,41 @@ def gallery(q, enrollments: Iterable[tuple], *, n_shards: int = 1,
     for raw, labels, tenant in enrollments:
         out.enroll(np.asarray(raw, np.float32), list(labels), tenant=tenant)
     return out
+
+
+def _tensor(a) -> torch.Tensor:
+    """A numpy array as a tensor of its dtype; a bf16 array (numpy's
+    ``bfloat16`` extension type) goes through fp32, which holds it
+    exactly."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def lm_params(cfg, params_np) -> "mdl.LM":
+    """The port's model holding the reference's parameters (a tree of
+    numpy arrays, as ``jax.tree.map(np.asarray, params)`` gives): ``embed``,
+    ``final_ln`` and ``shared`` as they are, ``blocks`` unstacked into one
+    entry per block (and the hybrid's ``mamba`` into one per layer)."""
+    stacked = params_np["blocks"]
+    blocks = []
+    for i in range(cfg.n_superblocks):
+        b = _map(lambda a: np.asarray(a)[i], stacked)
+        if cfg.family == "hybrid":
+            b = {"mamba": [_map(lambda a: a[j], b["mamba"])
+                           for j in range(cfg.superblock)]}
+        blocks.append(b)
+    tree = {"embed": params_np["embed"], "final_ln": params_np["final_ln"],
+            "blocks": blocks}
+    if "shared" in params_np:
+        tree["shared"] = params_np["shared"]
+    return mdl.LM(cfg, _map(_tensor, tree))

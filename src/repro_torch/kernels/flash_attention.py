@@ -1,0 +1,158 @@
+"""Blocked online-softmax (flash) attention: the Hopper kernel and its plain
+version.
+
+The prefill attention of the LM stack.  ``flash_attention_cuda`` is the
+port of the reference's ``flash_attention_pallas``.  On a CUDA tensor it
+launches the hand-written kernel in ``csrc/flash_attention.cu`` (built with
+``nvcc`` for ``sm_90a`` at first use into ``build/kernels/``, bound through
+``ctypes``); on a CPU tensor it runs ``flash_attention_plain``, the same
+function in plain PyTorch.  Any other device raises: there is no fallback
+from the kernel to the plain version.
+
+Contract (the reference kernel's):
+
+  * q (B, H, Sq, D), k (B, Kh, Sk, D), v (B, Kh, Sk, Dv), all fp32 or all
+    bf16; query head h reads kv head h // (H // Kh); the output
+    (B, H, Sq, Dv) has q's dtype;
+  * scores are fp32 dots times D^-1/2; masked scores
+    are ``NEG = -2e38``; the causal mask is left-aligned (query i sees keys
+    j <= i whatever Sk - Sq is: ROADMAP R4), a window keeps i - j < window;
+  * the softmax runs in fp32 and its probabilities are cast to v's dtype
+    before the PV product.
+
+The kernel takes strides, so (B, S, H, D) tensors of the model go in as
+``transpose(1, 2)`` views without a copy (the feature dimension must be
+contiguous); the output is allocated (B, Sq, H, Dv) and returned as its
+(B, H, Sq, Dv) view, so the model's transpose back is contiguous.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+NEG = -2.0e38
+MAX_HEAD_DIM = 256      # the widest instantiated thread layout (16 x 16)
+
+# launches of the CUDA kernel
+launches = 0
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_lib = None
+
+
+def build(verbose: bool = False):
+    """Compile ``csrc/flash_attention.cu`` into ``build/kernels/`` unless a
+    library built from the same sources and flags is already there;
+    returns its path."""
+    return _build.build("flash_attention", verbose)
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = _build.library("flash_attention")
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.fa_forward.argtypes = [ci, vp, vp, vp, vp, ci, ci, ci, ci, ci,
+                                   ci, ci, ctypes.POINTER(ctypes.c_longlong),
+                                   ctypes.c_float, ci, ci, vp]
+        lib.fa_forward.restype = ci
+        lib.fa_error_string.argtypes = [ci]
+        lib.fa_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _masks(Sq: int, Sk: int, causal: bool, window: int, device):
+    """(Sq, Sk) bool: which keys each query sees (left-aligned)."""
+    qpos = torch.arange(Sq, device=device)[:, None]
+    kpos = torch.arange(Sk, device=device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= qpos >= kpos
+    if window:
+        mask &= qpos - kpos < window
+    return mask
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0):
+    """The kernel's function in plain PyTorch, on whatever device the
+    tensors are on: fp32 scores, left-aligned masks to NEG, an fp32
+    softmax, probabilities cast to v's dtype before the PV product, the
+    output in q's dtype.  The CPU path, and what the kernel is held against
+    on the card."""
+    B, H, Sq, D = q.shape
+    Kh, Sk = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Kh, H // Kh, Sq, D)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qg.float(), k.float()).mul_(
+        D ** -0.5)
+    s.masked_fill_(~_masks(Sq, Sk, causal, window, q.device), NEG)
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    o = torch.einsum("bkgqs,bksd->bkgqd", p.float(), v.float())
+    return o.reshape(B, H, Sq, v.shape[-1]).to(q.dtype)
+
+
+def _check(q, k, v):
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash_attention: q, k and v must be 4-D")
+    B, H, Sq, D = q.shape
+    if k.shape[0] != B or v.shape[:3] != k.shape[:3] or k.shape[3] != D:
+        raise ValueError(f"flash_attention: bad shapes q{tuple(q.shape)} "
+                         f"k{tuple(k.shape)} v{tuple(v.shape)}")
+    if H % k.shape[1] != 0:
+        raise ValueError(f"flash_attention: {H} query heads over "
+                         f"{k.shape[1]} kv heads")
+    if min(Sq, k.shape[2], D, v.shape[3], B, H) < 1:
+        raise ValueError("flash_attention: empty input")
+    if len({q.device, k.device, v.device}) != 1:
+        raise ValueError("flash_attention: tensors on several devices")
+    if len({q.dtype, k.dtype, v.dtype}) != 1:
+        raise ValueError("flash_attention: q, k and v must share a dtype")
+
+
+def _flash_cuda(q, k, v, causal: bool, window: int):
+    global launches
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError(f"flash_attention: no kernel for {q.dtype}")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("flash_attention: the feature dimension must be "
+                         "contiguous")
+    B, H, Sq, D = q.shape
+    Kh, Sk, Dv = k.shape[1], k.shape[2], v.shape[3]
+    if D > MAX_HEAD_DIM or Dv > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head dims {D}/{Dv} above the "
+                         f"kernel's {MAX_HEAD_DIM}")
+    if -(-Sq // 64) > 65535:
+        raise ValueError(f"flash_attention: Sq={Sq} too long for the grid")
+    lib = _library()
+    o = torch.empty((B, Sq, H, Dv), dtype=q.dtype,
+                    device=q.device).transpose(1, 2)
+    strides = (ctypes.c_longlong * 12)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.fa_forward(_DTYPE_CODE[q.dtype], q.data_ptr(),
+                             k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H,
+                             Kh, Sq, Sk, D, Dv, strides, D ** -0.5,
+                             int(causal), int(window), stream)
+    if err != 0:
+        raise RuntimeError("flash_attention: kernel launch failed: "
+                           + lib.fa_error_string(err).decode())
+    launches += 1
+    return o
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, window: int = 0
+                         ) -> torch.Tensor:
+    """q: (B, H, Sq, D); k/v: (B, Kh, Sk, D[v]).  Returns (B, H, Sq, Dv)
+    in q's dtype: the kernel on a CUDA tensor, the plain version on a CPU
+    tensor."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    if q.device.type == "cuda":
+        return _flash_cuda(q, k, v, causal, window)
+    raise ValueError(f"flash_attention: no kernel for device {q.device}")

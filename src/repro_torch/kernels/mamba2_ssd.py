@@ -1,0 +1,162 @@
+"""Chunked Mamba-2 SSD scan: the Hopper kernel and its plain version.
+
+The prefill hot path of the hybrid family (zamba2).  ``mamba2_ssd_cuda`` is
+the port of the reference's ``mamba2_ssd_pallas``.  On a CUDA tensor it
+launches the hand-written kernel in ``csrc/mamba2_ssd.cu`` (built with
+``nvcc`` for ``sm_90a`` at first use into ``build/kernels/``, bound through
+``ctypes``); on a CPU tensor it runs ``mamba2_ssd_plain``, the same
+function in plain PyTorch.  Any other device raises: there is no fallback
+from the kernel to the plain version.
+
+Contract (the reference kernel's): x (Bt, L, H, P), dt (Bt, L, H),
+A (H,), B and C (Bt, L, N), all widened to fp32; L a multiple of the chunk.
+Within a chunk ``y = (C B^T o L)(dt x) + exp(cum) (C state^T)`` with
+``L[t, s] = exp(cum_t - cum_s)`` for t >= s (else 0) and ``cum`` the
+chunk's cumulative sum of ``dt A``; the (P, N) state carries across
+chunks.  Returns (y (Bt, L, H, P) fp32, final state (Bt, H, P, N) fp32).
+No ``D`` skip and no initial state: the model adds the skip outside.
+
+The kernel takes strides over (batch, time), so the model's x, B and C,
+which are column slices of one projection, go in without a copy.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+MAX_DIM = 128           # P and N: the widest instantiated thread layout
+
+# launches of the CUDA kernel
+launches = 0
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_lib = None
+
+
+def build(verbose: bool = False):
+    """Compile ``csrc/mamba2_ssd.cu`` into ``build/kernels/`` unless a
+    library built from the same sources and flags is already there;
+    returns its path."""
+    return _build.build("mamba2_ssd", verbose)
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = _build.library("mamba2_ssd")
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.ssd_forward.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp, ci, ci,
+                                    ci, ci, ci, ci,
+                                    ctypes.POINTER(ctypes.c_longlong), vp]
+        lib.ssd_forward.restype = ci
+        lib.ssd_error_string.argtypes = [ci]
+        lib.ssd_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def mamba2_ssd_plain(x, dt, A, B, C, *, chunk: int):
+    """The kernel's function in plain PyTorch, on whatever device the
+    tensors are on: the chunked fp32 math, intra-chunk quadratic form and
+    a sequential pass over the chunks' states.  The CPU path, and what the
+    kernel is held against on the card."""
+    Bt, L, H, P = x.shape
+    N = B.shape[-1]
+    c, nc = chunk, L // chunk
+    dtf = dt.float()
+    xdt = (x.float() * dtf[..., None]).reshape(Bt, nc, c, H, P)
+    cum = torch.cumsum((dtf * A.float()).reshape(Bt, nc, c, H), dim=2)
+    Bc = B.float().reshape(Bt, nc, c, N)
+    Cc = C.float().reshape(Bt, nc, c, N)
+    # (C B^T o L) xdt within each chunk; exp only where t >= s
+    G = torch.einsum("bjtn,bjsn->bjts", Cc, Bc)
+    causal = torch.tril(torch.ones((c, c), dtype=torch.bool,
+                                   device=x.device))[None, None, :, :, None]
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]    # (Bt,nc,t,s,H)
+    decay = torch.where(causal, torch.exp(seg.masked_fill_(~causal, 0.0)),
+                        0.0)
+    y = torch.einsum("bjtsh,bjshp->bjthp", decay.mul_(G[..., None]), xdt)
+    # the carried state, chunk by chunk
+    total = cum[:, :, -1]                                  # (Bt,nc,H)
+    w = torch.exp(total[:, :, None, :] - cum)              # (Bt,nc,c,H)
+    dBx = torch.einsum("bjthp,bjtn->bjhpn", xdt * w[..., None], Bc)
+    st = torch.zeros((Bt, H, P, N), dtype=torch.float32, device=x.device)
+    for j in range(nc):
+        y[:, j] += torch.exp(cum[:, j])[..., None] * torch.einsum(
+            "btn,bhpn->bthp", Cc[:, j], st)
+        st = torch.exp(total[:, j])[:, :, None, None] * st + dBx[:, j]
+    return y.reshape(Bt, L, H, P), st
+
+
+def _check(x, dt, A, B, C, chunk):
+    if x.dim() != 4 or dt.dim() != 3 or A.dim() != 1 or B.dim() != 3 \
+            or C.dim() != 3:
+        raise ValueError("mamba2_ssd: x (Bt,L,H,P), dt (Bt,L,H), A (H,), "
+                         "B and C (Bt,L,N)")
+    Bt, L, H, P = x.shape
+    N = B.shape[-1]
+    if tuple(dt.shape) != (Bt, L, H) or tuple(A.shape) != (H,) or \
+            tuple(B.shape) != (Bt, L, N) or tuple(C.shape) != (Bt, L, N):
+        raise ValueError(f"mamba2_ssd: bad shapes x{tuple(x.shape)} "
+                         f"dt{tuple(dt.shape)} A{tuple(A.shape)} "
+                         f"B{tuple(B.shape)} C{tuple(C.shape)}")
+    if min(Bt, L, H, P, N) < 1 or chunk < 1 or L % chunk != 0:
+        raise ValueError(f"mamba2_ssd: L={L} is not a multiple of the chunk "
+                         f"{chunk}")
+    if len({t.device for t in (x, dt, A, B, C)}) != 1:
+        raise ValueError("mamba2_ssd: tensors on several devices")
+
+
+def _ssd_cuda(x, dt, A, B, C, chunk: int):
+    global launches
+    if len({x.dtype, B.dtype, C.dtype}) != 1 or x.dtype not in _DTYPE_CODE:
+        raise ValueError("mamba2_ssd: x, B and C must be all fp32 or all "
+                         "bf16")
+    if dt.dtype != torch.float32 or A.dtype != torch.float32:
+        raise ValueError("mamba2_ssd: dt and A must be fp32")
+    Bt, L, H, P = x.shape
+    N = B.shape[-1]
+    if P > MAX_DIM or N > MAX_DIM:
+        raise ValueError(f"mamba2_ssd: P={P}, N={N} above the kernel's "
+                         f"{MAX_DIM}")
+    if x.stride(3) != 1 or x.stride(2) != P or dt.stride(2) != 1 or \
+            B.stride(2) != 1 or C.stride(2) != 1 or not A.is_contiguous():
+        raise ValueError("mamba2_ssd: the (H, P) of x, the H of dt and the N "
+                         "of B and C must be contiguous")
+    if max(H, Bt) > 65535:
+        raise ValueError("mamba2_ssd: too many heads or sequences for the "
+                         "grid")
+    lib = _library()
+    y = torch.empty((Bt, L, H, P), dtype=torch.float32, device=x.device)
+    state = torch.empty((Bt, H, P, N), dtype=torch.float32, device=x.device)
+    strides = (ctypes.c_longlong * 8)(
+        x.stride(0), x.stride(1), dt.stride(0), dt.stride(1), B.stride(0),
+        B.stride(1), C.stride(0), C.stride(1))
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.ssd_forward(_DTYPE_CODE[x.dtype], x.data_ptr(),
+                              dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+                              C.data_ptr(), y.data_ptr(), state.data_ptr(),
+                              Bt, L, H, P, N, chunk, strides, stream)
+    if err != 0:
+        raise RuntimeError("mamba2_ssd: kernel launch failed: "
+                           + lib.ssd_error_string(err).decode())
+    launches += 1
+    return y, state
+
+
+def mamba2_ssd_cuda(x, dt, A, B, C, *, chunk: int = 256):
+    """x: (Bt, L, H, P); dt: (Bt, L, H); A: (H,); B, C: (Bt, L, N).
+    Returns (y (Bt, L, H, P) fp32, state (Bt, H, P, N) fp32), with the
+    chunk ``min(chunk, L)``: the kernel on a CUDA tensor, the plain version
+    on a CPU tensor."""
+    chunk = min(chunk, x.shape[1])
+    _check(x, dt, A, B, C, chunk)
+    if x.device.type == "cpu":
+        return mamba2_ssd_plain(x, dt, A, B, C, chunk=chunk)
+    if x.device.type == "cuda":
+        return _ssd_cuda(x, dt, A, B, C, chunk)
+    raise ValueError(f"mamba2_ssd: no kernel for device {x.device}")

@@ -1,10 +1,10 @@
-"""Public wrappers for the match kernels.
+"""Public wrappers for the kernels.
 
-The port of the reference's ``kernels/ops.py`` match and ANN wrappers.
-PyTorch runs eagerly, so there is nothing to jit: each wrapper prepares its
-inputs and calls the kernel wrapper in ``gallery_match`` or ``ann_match``,
-which launches the CUDA kernel on a CUDA tensor and runs the plain version
-on a CPU tensor.
+The port of the reference's ``kernels/ops.py``.  PyTorch runs eagerly, so
+there is nothing to jit: each wrapper prepares its inputs and calls the
+kernel wrapper in ``gallery_match``, ``ann_match``, ``flash_attention`` or
+``mamba2_ssd``, which launches the CUDA kernel on a CUDA tensor and runs
+the plain version on a CPU tensor.
 """
 from __future__ import annotations
 
@@ -12,9 +12,11 @@ import torch
 
 from repro_torch.kernels.ann_match import (cell_rescore_cuda,
                                            centroid_topc_cuda)
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.gallery_match import (gallery_match_cuda,
                                                gallery_match_quant_cuda,
                                                quantize_gallery)
+from repro_torch.kernels.mamba2_ssd import mamba2_ssd_cuda
 
 
 def _l2n(x: torch.Tensor) -> torch.Tensor:
@@ -72,3 +74,14 @@ def cell_rescore_quant(q, cells_q, cell_scale, cell_ids, cell_lens, *,
     """int8 packed-cell rescore (per-row quantized, fp32 accumulation)."""
     return cell_rescore_cuda(q, cells_q, cell_ids, cell_lens, cell_scale,
                              k=k, L=L, fuse_norm=True)
+
+
+# -- LM stack ----------------------------------------------------------------
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """q: (B,H,S,D); k/v: (B,Kh,S,Dv)."""
+    return flash_attention_cuda(q, k, v, causal=causal, window=window)
+
+
+def mamba2_ssd(x, dt, A, B, C):
+    """Chunk-parallel SSD scan (chunk ``min(256, L)``); see mamba2_ssd.py."""
+    return mamba2_ssd_cuda(x, dt, A, B, C)

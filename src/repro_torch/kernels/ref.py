@@ -1,8 +1,10 @@
-"""Plain PyTorch oracles for the match kernels (the correctness contract).
+"""Plain PyTorch oracles for the kernels (the correctness contract).
 
-Ports of the reference's ``kernels/ref.py`` match and ANN oracles (the LM
-oracles port with the LM stack).  ``jax.lax.top_k`` breaks ties by the
-lowest index, which a stable descending sort gives.
+Ports of the reference's ``kernels/ref.py``: the match and ANN oracles,
+and the LM oracles ``flash_attention_ref`` (right-aligned causal mask, as
+the reference's; the flash kernel itself is left-aligned, ROADMAP R4) and
+``mamba2_ssd_ref`` (the sequential recurrence).  ``jax.lax.top_k`` breaks
+ties by the lowest index, which a stable descending sort gives.
 """
 from __future__ import annotations
 
@@ -94,3 +96,49 @@ def ann_match_ref(q, gn, centroids, assign, *, nprobe: int, k: int):
                            1)
         idx = torch.cat([idx, idx.new_full((s.shape[0], pad), -1)], 1)
     return _sentinels(scores, idx)
+
+
+def flash_attention_ref(q, k, v, *, causal=True, scale=None, window=0):
+    """q: (B,H,Sq,D), k/v: (B,Kh,Sk,D[v]). Plain softmax attention, f32."""
+    B, H, Sq, D = q.shape
+    Kh, Sk = k.shape[1], k.shape[2]
+    G = H // Kh
+    scale = scale if scale is not None else D ** -0.5
+    qg = q.float().reshape(B, Kh, G, Sq, D)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.float()) * scale
+    qpos = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window:
+        mask &= qpos - kpos < window
+    s = torch.where(mask, s, torch.full_like(s, -2e38))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bksd->bkgqd", p, v.float())
+    return o.reshape(B, H, Sq, v.shape[-1])
+
+
+def mamba2_ssd_ref(x, dt, A, B, C, D=None, *, init_state=None):
+    """Sequential SSD recurrence (Mamba-2), the exactness oracle.
+
+    x: (Bt, L, H, P)  dt: (Bt, L, H)  A: (H,)  B,C: (Bt, L, N)
+    state: (Bt, H, P, N); y[t] = C[t] . state[t]  (+ D*x skip).
+    """
+    Bt, L, H, P = x.shape
+    N = B.shape[-1]
+    st = (init_state.float() if init_state is not None else
+          torch.zeros((Bt, H, P, N), dtype=torch.float32, device=x.device))
+    xf, dtf, Bf, Cf = x.float(), dt.float(), B.float(), C.float()
+    A = A.float()
+    ys = []
+    for t in range(L):
+        dA = torch.exp(dtf[:, t] * A[None, :])                  # (Bt,H)
+        dBx = torch.einsum("bhp,bn->bhpn", xf[:, t] * dtf[:, t, :, None],
+                           Bf[:, t])
+        st = st * dA[..., None, None] + dBx
+        ys.append(torch.einsum("bhpn,bn->bhp", st, Cf[:, t]))
+    y = torch.stack(ys, dim=1)                                  # (Bt,L,H,P)
+    if D is not None:
+        y = y + xf * D.float()[None, None, :, None]
+    return y, st

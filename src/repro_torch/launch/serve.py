@@ -10,8 +10,11 @@ CR-FIQA/FaceNet bitstreams), and serves it two ways:
   against its *own* watchlist (tenant-scoped gallery views).
 * ``--mode biometric``: the single-operator scenario with a live hot-swap.
 
-The port of the reference's ``launch/serve.py`` biometric half (LM serving
-ports with the LM stack).  The stages are ``nn.Module``s computing in NCHW;
+* ``--mode lm``: LM serving (prefill, then greedy decode) for the dense
+  and hybrid families (``run_lm``).
+
+The port of the reference's ``launch/serve.py``.  The stages are
+``nn.Module``s computing in NCHW;
 the public functions keep the reference's NHWC frames, crops and weights
 layout at their edges.  Everything runs on the card unless the caller
 passes ``device="cpu"``.  The serving path turns TF32 off for cuDNN
@@ -21,6 +24,7 @@ move the detector's argmax and so crop a different face.
 from __future__ import annotations
 
 import argparse
+import time
 
 import numpy as np
 import torch
@@ -28,11 +32,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.bus import SharedBus, calibrated
+from repro_torch.configs import base as cb
 from repro_torch.core import messages as msg
 from repro_torch.core.cartridge import Cartridge, DeviceModel, FnCartridge
 from repro_torch.crypto import SecureGallery
 from repro_torch.data import FrameStream
 from repro_torch.device import resolve_device
+from repro_torch.launch import specs as sp
+from repro_torch.models import model as mdl
 from repro_torch.runtime import (CapabilityRegistry, FrontDoor, StreamEngine,
                                  Tenant)
 
@@ -425,10 +432,89 @@ def run_fleet(duration_s=3.0, load=None, hotswap=False, *, device=None,
     return rep
 
 
+# ---------------------------------------------------------------------------
+# LM serving (prefill + decode)
+# ---------------------------------------------------------------------------
+def _put(dst, src):
+    """A prefill cache leaf written into the front of the T-long cache
+    leaf (along the first axis where the shapes differ), in its dtype."""
+    if src.dim() == 0 or dst.shape == src.shape:
+        return src.to(dst.dtype)
+    ax = [i for i, (a, b) in enumerate(zip(dst.shape, src.shape))
+          if a != b][0]
+    dst.narrow(ax, 0, src.shape[ax]).copy_(src)
+    return dst
+
+
+def _tree_map2(fn, a, b):
+    if isinstance(a, dict):
+        return {k: _tree_map2(fn, a[k], b[k]) for k in a}
+    if isinstance(a, list):
+        return [_tree_map2(fn, x, y) for x, y in zip(a, b)]
+    return fn(a, b)
+
+
+def prefill_cache(params, cfg, tokens, T: int):
+    """Run the prompts ``tokens`` (B, S) and put their cache into the front
+    of a T-long one in the weights' dtype: (last-token logits (B, V),
+    cache), as ``run_lm`` serves."""
+    last, cache = mdl.prefill(params, cfg, {"tokens": tokens})
+    full = sp.init_cache(cfg, tokens.shape[0], T, dtype=params.dtype,
+                         device=tokens.device)
+    return last, _tree_map2(_put, full, cache)
+
+
+def run_lm(arch="tinyllama-1.1b", batch=2, prompt_len=32, gen=16, *,
+           cfg=None, params=None, tokens=None, device=None):
+    """Prefill a batch of prompts, put the cache into a (prompt + gen)-long
+    one, and decode ``gen`` tokens greedily; returns them (batch, gen).
+
+    By default it serves ``arch``'s smoke config with bf16 weights drawn
+    from a generator seeded with 0 and random prompts from the same
+    generator, as the reference does.  ``cfg`` serves another config (a
+    full one), ``params`` given weights (an ``mdl.LM``), ``tokens`` given
+    prompts (batch, prompt_len); the caches take the weights' dtype (bf16,
+    the reference's ``MODEL_DTYPE``, by default)."""
+    dev = resolve_device(device)
+    cfg = cfg if cfg is not None else cb.smoke(arch)
+    gen_t = torch.Generator(device=dev).manual_seed(0)
+    if params is None:
+        params = mdl.init(cfg, gen_t, sp.MODEL_DTYPE, dev)
+    params = params.to(dev)
+    if tokens is None:
+        tokens = sp.make_batch(cfg, prompt_len, batch, gen_t,
+                               device=dev)["tokens"]
+    tokens = torch.as_tensor(tokens, dtype=torch.int32, device=dev)
+    batch, prompt_len = tokens.shape
+    T = prompt_len + gen
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        last, cache = prefill_cache(params, cfg, tokens, T)
+        tok = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
+        sync()
+        t1 = time.perf_counter()
+        outs = [tok]
+        for i in range(gen - 1):
+            tok, cache = mdl.serve_step(params, cfg, tok, prompt_len + i,
+                                        cache)
+            outs.append(tok)
+        sync()
+        t2 = time.perf_counter()
+    toks = torch.cat(outs, dim=1)
+    tok_s = batch * (gen - 1) / max(t2 - t1, 1e-9)
+    print(f"[serve-lm] {cfg.name}: generated {gen}x{batch} tokens after a "
+          f"{prompt_len}-token prefill in {(t1 - t0) * 1e3:.1f} ms "
+          f"({tok_s:.1f} tok/s on {dev.type}); sample: "
+          f"{toks[0, :12].cpu().numpy()}")
+    return toks
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--mode", choices=["fleet", "biometric"],
+    ap.add_argument("--mode", choices=["fleet", "biometric", "lm"],
                     default="fleet")
+    ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--frames", type=int, default=30)
     ap.add_argument("--duration", type=float, default=3.0,
                     help="fleet mode: seconds of offered traffic")
@@ -438,9 +524,11 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.mode == "fleet":
         run_fleet(args.duration, device=args.device)
-    else:
+    elif args.mode == "biometric":
         run_biometric(args.frames, hotswap=not args.no_hotswap,
                       device=args.device)
+    else:
+        run_lm(args.arch, device=args.device)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,101 @@
+"""Shared primitives: norms, RoPE, gated MLP, embeddings.
+
+The port of the reference's ``models/layers.py`` as far as the dense and
+hybrid families use it.  Casts follow the reference: norms compute in fp32
+and return the input's dtype, RoPE rotates in fp32, matmuls keep their
+operands' dtype (a bf16 product accumulates in fp32 and rounds once).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.params import Spec
+
+
+def rms_norm(x, w, eps=1e-6):
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * (1.0 + w.float())).to(dt)
+
+
+def _gelu(x):
+    return F.gelu(x, approximate="tanh")        # jax.nn.gelu's default
+
+
+def act_fn(name: str):
+    return {"silu": F.silu, "gelu": _gelu, "relu": F.relu}[name]
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+def rope_freqs(dh: int, theta: float, device=None):
+    return theta ** (-torch.arange(0, dh, 2, dtype=torch.float32,
+                                   device=device) / dh)
+
+
+def apply_rope(x, pos, theta: float):
+    """x: (B, S, H, D); pos: (B, S) or (S,) int positions.  Half-split
+    rotation (the first D/2 features pair with the last D/2)."""
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, x.device)                 # (D/2,)
+    angles = pos[..., None].float() * freqs                 # (..., S, D/2)
+    if angles.dim() == 2:                   # (S, D/2) -> broadcast batch
+        angles = angles[None]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Gated MLP
+# ---------------------------------------------------------------------------
+def mlp_specs(d: int, ff: int):
+    return {
+        "ln": Spec((d,), ("embed",), "zeros"),
+        "w_gate": Spec((d, ff), ("embed", "mlp")),
+        "w_up": Spec((d, ff), ("embed", "mlp")),
+        "w_down": Spec((ff, d), ("mlp", "embed")),
+    }
+
+
+def mlp_fwd(p, x, act="silu", eps=1e-6):
+    h = rms_norm(x, p["ln"], eps)
+    g = h @ p["w_gate"]
+    u = h @ p["w_up"]
+    return (act_fn(act)(g) * u) @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# Embedding / head
+# ---------------------------------------------------------------------------
+def embed_specs(vocab: int, d: int, tie: bool):
+    s = {"tok": Spec((vocab, d), ("vocab", "embed_table"))}
+    if not tie:
+        s["head"] = Spec((d, vocab), ("embed", "vocab"))
+    return s
+
+
+def embed_scale(d: int) -> float:
+    """sqrt(d) rounded to bf16, as the reference scales (50.5 at d=2560)."""
+    return float(torch.tensor(math.sqrt(float(d)), dtype=torch.float32)
+                 .to(torch.bfloat16))
+
+
+def embed(p, tokens, d):
+    tok = p["tok"]
+    return tok[tokens] * torch.tensor(embed_scale(d), dtype=tok.dtype,
+                                      device=tok.device)
+
+
+def unembed(p, x):
+    w = p.get("head")
+    if w is None:
+        w = p["tok"].T
+    return x @ w
