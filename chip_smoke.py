@@ -8,6 +8,8 @@ Phases, each printing its lines; any failure exits non-zero:
 1. card: the GPU's name and power limit, from nvidia-smi;
 2. build: compile the four CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one nvcc each for sm_90a, started together) and print each build time;
+   count the tensor-core (HGMMA) and TMA-load (UTMALDG) instructions in
+   the flash library's SASS (``cuobjdump``), which must hold both;
 3. gallery-match kernel vs plain: the kernel against its plain PyTorch
    version on the card, for fp32, bf16 and int8 galleries at Q in
    {1, 16, 256}, N in {1000, 262144}, D = 128, k in {1, 5}, plus k > N and
@@ -24,13 +26,17 @@ Phases, each printing its lines; any failure exits non-zero:
    the serving shape (Q = 1, c = 8, k = 1) beside the bound;
 5. flash-attention kernel vs plain: in fp32 and bf16, on the CPU tests'
    shapes (GQA, MQA, bidirectional, window 128, S = 384, 192/128 head
-   dims, D = 80, Sq < Sk) and the two serving shapes, (8, 32, 2048, 80)
-   MHA and (8, 32/4, 2048, 64) GQA, these as the model's strided
-   (B, S, H, D) views; bf16 outputs are held element by element, relative
-   to one bf16 ulp and the row's RMS, and every check must also reject a
-   planted 5 % error on the later positions; then the kernel's, the plain
-   version's and ``F.scaled_dot_product_attention``'s device times at the
-   serving shapes beside the bound;
+   dims, D = 80, Sq < Sk), the kernel's edges (D = 240 with window 1024,
+   192/128 at S = 1024, Sq = Sk = 1000 as strided views), every (D, Dv)
+   pair the kernel is instantiated for at S = 136, and the two
+   serving shapes, (8, 32, 2048, 80) MHA and (8, 32/4, 2048, 64) GQA,
+   these as the model's strided (B, S, H, D) views and run twice, the two
+   outputs bit-identical; bf16 outputs are held element by element,
+   relative to one bf16 ulp and the row's RMS, and every check must also
+   reject a planted 5 % error on the later positions; then the kernel's,
+   the plain version's and ``F.scaled_dot_product_attention``'s device
+   times at the serving shapes beside the bound, with each one's share of
+   it;
 6. SSD kernel vs plain: y and the final state on the CPU tests' shapes in
    fp32 and bf16, and at the serving shape (8, 2048, 80, 64), N = 64,
    chunk 256, as the model's strided slices; then the kernel's and the
@@ -58,7 +64,11 @@ Phases, each printing its lines; any failure exits non-zero:
    time, decode rate and peak memory from ``run_lm``'s own line; then
    where the time goes: the teacher-forced run's prefill and decode
    device time split by kernel (profiler traces) against ``run_lm``'s
-   wall times.
+   wall times;
+11. the LM entry point as called with no arguments: ``run_lm(arch)`` for
+   each of the two archs, which serves the smoke config (head dim 16) in
+   bf16 on the card; its tokens must be in range and the flash kernel
+   must have launched.
 Each run of a main path sets the kernels' launch counts to 0 just before
 it and reads them just after.
 
@@ -73,8 +83,8 @@ import copy
 import gc
 import io
 import json
+import math
 import re
-import statistics
 import subprocess
 import sys
 import time
@@ -209,20 +219,22 @@ def compare(torch, gm, dtype, Q, N, k, gen, D=128, misalign=False):
     return err
 
 
-def _kernel_us(prof):
-    """(number of kernels, their total device time in microseconds) in a
-    profile."""
+def _kernel_us(prof, n):
+    """Device microseconds a call in a profile of ``n`` calls of one
+    function: each kernel's mean time times its launches a call (its count
+    over ``n``, rounded up: every call launches every kernel the trace
+    holds), so launches the trace lost do not lower the time of a call."""
     from torch.autograd import DeviceType
-    count, total = 0, 0.0
+    per_call = 0.0
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
-            count += e.count
-            total += getattr(e, "self_device_time_total", None) or \
+            us = getattr(e, "self_device_time_total", None) or \
                 getattr(e, "self_cuda_time_total", 0.0)
-    return count, total
+            per_call += us / e.count * math.ceil(e.count / n)
+    return per_call
 
 
-def timed(torch, fn, galleries, iters=10, traces=1):
+def timed(torch, fn, galleries, iters=10):
     """(device ms, call ms) of one call of ``fn(*args)``, ``args`` taken in
     turn from ``galleries``.
 
@@ -231,10 +243,12 @@ def timed(torch, fn, galleries, iters=10, traces=1):
     the 50 MB L2 cache.  Device ms is the kernels' own time, summed from a
     ``torch.profiler`` trace; call ms is CUDA events around back-to-back
     calls, so it also holds any time the card waits on the host.  A trace
-    of a few long launches can come back one kernel short (seen on the
-    H100: five 15 ms launches read 20 % short while CUDA events read them
-    whole), so the LM kernels' timings trace ``traces`` windows and take
-    the median over those with the most kernels."""
+    can come back short (seen on the H100: every window of five 5 ms
+    launches lost one, which read 20 % low when the time was divided by
+    the calls; once a trace of 40 gallery-match calls read no time at
+    all when counts were rounded to the nearest), so each kernel's time is
+    its mean launch times its launches a call (``_kernel_us``), and a
+    trace that holds no device time is taken again, up to three times."""
     from torch.profiler import ProfilerActivity, profile
 
     def rounds(n):
@@ -252,17 +266,16 @@ def timed(torch, fn, galleries, iters=10, traces=1):
     e1.synchronize()
     n = iters * len(galleries)
     call_ms = e0.elapsed_time(e1) / n
-    windows = []
-    for _ in range(traces):
+    for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             rounds(iters)
             torch.cuda.synchronize()
-        windows.append(_kernel_us(prof))
-    most = max(c for c, _ in windows)
-    dev_us = statistics.median(us for c, us in windows if c == most)
-    if dev_us <= 0.0:
+        dev_us = _kernel_us(prof, n)
+        if dev_us > 0.0:
+            break
+    else:
         raise AssertionError("the profiler saw no device time")
-    return dev_us / n / 1e3, call_ms
+    return dev_us / 1e3, call_ms
 
 
 def bound(dtype, Q, N, D, k):
@@ -287,6 +300,24 @@ def phase_build(modules):
         built = list(pool.map(one, modules))
     for lib, secs in built:
         print(f"[build] {lib.relative_to(ROOT)} in {secs:.1f} s")
+
+
+def flash_sass(FA):
+    """How many tensor-core (HGMMA) and TMA-load (UTMALDG) instructions
+    the built flash library holds, from ``cuobjdump -sass``; its bf16 path
+    must issue both."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(FA.build())], check=True,
+                          capture_output=True, text=True).stdout
+    counts = {op: sum(op in line for line in sass.splitlines())
+              for op in ("HGMMA", "UTMALDG")}
+    print(f"[sass] {FA.build().relative_to(ROOT)}: "
+          + ", ".join(f"{n} {op}" for op, n in counts.items()))
+    if not all(counts.values()):
+        raise AssertionError(f"the flash library's bf16 path issues no "
+                             f"tensor-core or no TMA loads: {counts}")
+    return counts
 
 
 def phase_kernel(torch, gm):
@@ -798,6 +829,19 @@ FLASH_SHAPES = [(1, 2, 2, 128, 128, 64, 64, True, 0),
                 (1, 2, 2, 256, 256, 192, 128, True, 0),
                 (1, 4, 2, 512, 512, 80, 80, True, 0),
                 (2, 4, 2, 100, 300, 64, 64, True, 0)]
+# the kernel's edges: gemma3's local layer (D = 240, window 1024) at a small
+# B*H, MLA's 192 / 128 head dims at S = 1024, and Sq = Sk = 1000 (no
+# multiple of any tile), the last as the model's strided views
+FLASH_EDGES = [((1, 2, 2, 2048, 2048, 240, 240, True, 1024), False),
+               ((1, 4, 2, 1024, 1024, 192, 128, True, 0), False),
+               ((2, 4, 2, 1000, 1000, 64, 64, True, 0), True)]
+# every (D, Dv) pair the kernel is instantiated for, at a small GQA shape
+# whose S is no multiple of any tile
+def flash_head_dim_shapes(FA):
+    return [((1, 4, 2, 136, 136, D, Dv, True, 0), False)
+            for D, Dv in FA.supported_head_dims()]
+
+
 # the serving shapes: zamba2's shared block (MHA) and tinyllama (GQA)
 FLASH_SERVE = {"mha": (8, 32, 32, 2048, 2048, 80, 80, True, 0),
                "gqa": (8, 32, 4, 2048, 2048, 64, 64, True, 0)}
@@ -861,8 +905,9 @@ def phase_flash(torch, FA):
     gen = torch.Generator(device=DEV).manual_seed(2024)
     errs, timings = {}, {}
     for dtype in LM_DTYPES:
-        err, abs_err, caught, n = 0.0, 0.0, [], 0
-        cases = [(sh, False) for sh in FLASH_SHAPES] + \
+        err, abs_err, caught, n, identical = 0.0, 0.0, [], 0, 0
+        cases = [(sh, False) for sh in FLASH_SHAPES] + FLASH_EDGES + \
+            flash_head_dim_shapes(FA) + \
             [(sh, True) for sh in FLASH_SERVE.values()]
         for shape, model_layout in cases:
             causal, window = shape[7], shape[8]
@@ -870,6 +915,16 @@ def phase_flash(torch, FA):
             o = FA.flash_attention_cuda(q, k, v, causal=causal,
                                         window=window)
             torch.cuda.synchronize()
+            if model_layout and shape in FLASH_SERVE.values():
+                # a race in the kernel's pipeline shows as a difference
+                o2 = FA.flash_attention_cuda(q, k, v, causal=causal,
+                                             window=window)
+                torch.cuda.synchronize()
+                if not torch.equal(o, o2):
+                    raise AssertionError(f"flash {dtype} {shape}: two runs "
+                                         "on the same inputs differ")
+                identical += 1
+                del o2
             p = FA.flash_attention_plain(q, k, v, causal=causal,
                                          window=window)
             if o.dtype != q.dtype or o.shape != p.shape or \
@@ -896,22 +951,24 @@ def phase_flash(torch, FA):
         print(f"[flash] {dtype}: kernel == plain on {n} shapes, {what} "
               f"{err:.3g} (tolerance {FLASH_TOL[dtype]}; max abs error "
               f"{abs_err:.3g}); a planted {PLANT - 1:.0%} error on the later "
-              f"positions reads {min(caught):.3g} or more")
+              f"positions reads {min(caught):.3g} or more; the {identical} "
+              "serving shapes bit-identical over two runs")
         for name, shape in FLASH_SERVE.items():
             args = [flash_inputs(torch, shape, dtype, gen, True)]
             gqa = shape[1] != shape[2]
             kms, kcall = timed(torch, lambda q, k, v: FA.flash_attention_cuda(
-                q, k, v), args, iters=5, traces=3)
+                q, k, v), args, iters=5)
             pms, _ = timed(torch, lambda q, k, v: FA.flash_attention_plain(
-                q, k, v), args, iters=3, traces=3)
+                q, k, v), args, iters=3)
             lms, _ = timed(torch, lambda q, k, v: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=gqa), args, iters=5,
-                traces=3)
+                q, k, v, is_causal=True, enable_gqa=gqa), args, iters=5)
             bms, by = work_bound(dtype, *flash_work(shape, dtype))
             timings[(dtype, name)] = (kms, pms, lms, bms, by)
             print(f"[flash] {dtype} {name} {shape[:7]}: kernel_ms={kms:.4f} "
                   f"(per call {kcall:.4f}) plain_ms={pms:.4f} "
-                  f"library_ms={lms:.4f} bound_ms={bms:.4f} ({by})")
+                  f"library_ms={lms:.4f} bound_ms={bms:.4f} ({by}); the "
+                  f"kernel at {bms / kms:.1%} of the bound, the library at "
+                  f"{bms / lms:.1%}")
             del args
     return errs, timings
 
@@ -983,9 +1040,9 @@ def phase_ssd(torch, SSD):
           f"error {err:.3g} (atol {SSD_ATOL}, rtol {SSD_RTOL})")
     args = [ssd_inputs(torch, SSD_SERVE, "bf16", gen, True)]
     kms, kcall = timed(torch, lambda *a: SSD.mamba2_ssd_cuda(*a), args,
-                       iters=5, traces=3)
+                       iters=5)
     pms, _ = timed(torch, lambda *a: SSD.mamba2_ssd_plain(
-        *a, chunk=SSD_SERVE[5]), args, iters=3, traces=3)
+        *a, chunk=SSD_SERVE[5]), args, iters=3)
     bms, by = work_bound("fp32", *ssd_work(SSD_SERVE, "bf16"))
     print(f"[ssd] bf16 {SSD_SERVE}: kernel_ms={kms:.4f} (per call "
           f"{kcall:.4f}) plain_ms={pms:.4f} library_ms=n/a "
@@ -1123,8 +1180,9 @@ def device_split(torch, fn):
         us = getattr(e, "self_device_time_total", None) or \
             getattr(e, "self_cuda_time_total", 0.0)
         split["total"] += us / 1e3
-        for key, tag in (("flash", "flash_fwd_kernel"), ("ssd", "ssd_kernel")):
-            if tag in e.key:
+        for key, tags in (("flash", ("flash_bf16_kernel", "flash_f32_kernel")),
+                          ("ssd", ("ssd_kernel",))):
+            if any(tag in e.key for tag in tags):
                 split[key] += us / 1e3
     return split
 
@@ -1275,6 +1333,25 @@ def phase_lm(torch, serve, FA, SSD):
     return launches
 
 
+def phase_lm_default(torch, serve, FA):
+    """``run_lm(arch)`` with no other argument, as a user calls it: the
+    smoke config, bf16, on the card."""
+    from repro_torch.configs import base as cb
+    for arch in LM_ARCHS:
+        cfg = cb.smoke(arch)
+        FA.launches = 0
+        toks = serve.run_lm(arch)
+        n_fa = FA.launches
+        if toks.dim() != 2 or int(toks.min()) < 0 or \
+                int(toks.max()) >= cfg.vocab_size or n_fa < 1:
+            raise AssertionError(f"run_lm({arch!r}): tokens "
+                                 f"{tuple(toks.shape)}, {n_fa} flash "
+                                 "launches")
+        print(f"[lm-default] run_lm({arch!r}): smoke config, head dim "
+              f"{cfg.dh}, tokens {tuple(toks.shape)} in range, flash "
+              f"launches {n_fa}")
+
+
 def main() -> int:
     try:
         import torch
@@ -1294,6 +1371,7 @@ def main() -> int:
     card = card_line()
     print(f"[card] {card}")
     phase_build([gm, A, FA, SSD])
+    sass = flash_sass(FA)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     errs, timings = phase_kernel(torch, gm)
@@ -1304,6 +1382,7 @@ def main() -> int:
     launches = phase_main(torch, gm, serve)
     ann_launches, _ = phase_ann(torch, gm, A, serve)
     lm_launches = phase_lm(torch, serve, FA, SSD)
+    phase_lm_default(torch, serve, FA)
 
     kernels = []
     for dtype in DTYPES:
@@ -1336,7 +1415,7 @@ def main() -> int:
             "replaces": "src/repro/kernels/flash_attention.py:95",
             "launches": lm_launches[name], "max_abs_err": f_errs[dtype],
             "ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
-            "library_ms": lms,
+            "library_ms": lms, "sass": sass,
             "shape": "B=8 H=32 Kh=32 S=2048 D=80 causal",
             "gqa": {"shape": "B=8 H=32 Kh=4 S=2048 D=64 causal",
                     "ms": g[0], "plain_ms": g[1], "library_ms": g[2],

@@ -17,48 +17,73 @@
 //   * a key tile is skipped only when the whole tile is masked for the whole
 //     query tile (the TPU kernel's block skipping).  At the start of a row,
 //     fully masked entries give exp(NEG - NEG) = 1; the first valid key then
-//     gives corr = exp(NEG - m) = 0, which wipes them, as on the TPU.
+//     gives corr = exp(NEG - m) = 0, which wipes them, as on the TPU.  The
+//     bf16 kernel works in base 2 (scores times scale * log2(e), exp2): NEG
+//     stays NEG in those units, so the same two identities hold.
 //
 // What bounds it on an H100: at the serving shapes (S = 2048, D = 64 or 80)
 // it does ~4 S D flops per byte of q, k, v and o, far above the card's
 // ridge, so the bound is arithmetic: the bf16 tensor cores (989 TFLOP/s) for
-// bf16 inputs, the fp32 FMA units (67 TFLOP/s) for fp32 inputs.  This first
-// kernel computes on the fp32 FMA units in both types (exact, simple), so in
-// bf16 it sits far from its bound; tensor cores (mma/wgmma) and TMA loads
-// are later work.  What the design does: a block owns one (b, h, 64-query
-// tile) and loops over the key tiles inside the block (no accumulator can
-// carry across blocks on Hopper); q, the current k and v tiles and the
-// probabilities live in shared memory as fp32 (rows padded by one float so
-// the 16 lanes of a row group hit distinct banks); m, l and the output stay
-// in registers.  The (Sq, Sk) score matrix never reaches device memory.
-// Blocks of the latest query tiles, which see the most keys, start first.
+// bf16 inputs, the fp32 FMA units (67 TFLOP/s) for exact fp32 inputs.
 //
-// Thread layout: 256 threads as a 16 x 16 grid (ty, tx).  Thread (ty, tx)
-// owns query rows ty + 16 i (i < 4), scores against keys tx + 16 j (j < 4) of
-// the tile, and output columns tx + 16 c (c < NC, NC = ceil(Dv / 16) rounded
-// up to an instantiated width).  The 16 threads of a row group are one half
-// of a warp, so row maxima and sums reduce with four xor shuffles.
+// bf16: tensor cores fed by TMA, warp-specialised.  A block owns one
+// (b, h, query tile) and loops over its key tiles (no accumulator can carry
+// across blocks on Hopper).  Warpgroup 0 is the producer: one thread loads
+// the Q tile once with TMA, then streams K and V tiles into a two-stage
+// ring in shared memory, each stage with a full barrier (TMA transaction
+// bytes) and an empty barrier (one arrival per consumer warp).  The other
+// warpgroups are consumers of 64 query rows each (two, or three where
+// D, Dv <= 64 and the registers allow: 128 or 192 rows a block).  For key
+// tile j a consumer issues S_j = Q K_j^T by `wgmma` (both operands K-major
+// in shared memory, fp32 accumulator in registers), then O += P_{j-1} V_{j-1}
+// by `wgmma` with P from registers (the S accumulator converted to bf16 in
+// the A-fragment layout) and V read with its Dv dimension contiguous (the
+// transposed-B descriptor, N = Dv in one instruction); it runs tile j's
+// online softmax while that PV is on the tensor cores.  The consumers take
+// turns to issue (named barriers), so one's softmax also overlaps the
+// others' products.  `setmaxnreg` moves registers from the producer to the
+// consumers.  The element mask runs only on the tiles that cut the causal
+// diagonal, the window edge or Sk; elsewhere the scale folds into the exp2's
+// FMA.  Blocks run head by head in groups of 8 heads (block_tile), so a
+// head's K and V are read from device memory about once.
+//
+// Shared-memory layout (bf16): every tile is stored as 64-column atoms of
+// rows x 128 bytes with the 128-byte swizzle, one TMA box {64, rows} each,
+// so any D or Dv that is a multiple of 16 up to 256 is ceil(D / 64) atoms
+// whose unused columns TMA zero-fills (D = 80: two atoms, columns 80..127
+// zero; 60 % more shared memory for Q, K and V than D needs, and no wasted
+// MMA work: S takes D / 16 = 5 k-steps of 16, PV one N = 80 wgmma whose B
+// descriptor steps from the first atom to the second by its leading byte
+// offset).  PV is one wgmma of N = Dv for Dv = 16 ... 80, 128 and 240; the
+// other widths issue one per 64-column atom of V (wgmma_rs).  Key tiles are
+// 128 keys for D, Dv <= 128 and 64 above; the ring with Q then takes 160 KB
+// at D = 80 or 128, 88 KB at D = 64 (192 rows), 128 KB at 192 / 128 and
+// 192 KB at 240 or 256.  FA_HEAD_DIMS (host side) lists the (D, Dv) pairs
+// that both dtypes are instantiated for.
 
+// fp32: exact IEEE fp32 on the FMA units (no TF32), register-tiled.  A block
+// of 256 threads (16 x 16) owns 128 query rows (64 when D is large); thread
+// (ty, tx) owns the scores of rows ty + 16 i (i < 8, or 4) against keys
+// tx + 16 j (j < 4) of a 64-key tile, and the outputs of those rows in
+// columns tx + 16 c, so each float4 read from shared memory feeds 8 to 32
+// FMAs.  K and V tiles are double-buffered with `cp.async` (single-buffered
+// when two stages do not fit 227 KB), so the next tile loads under the
+// FMAs.  Rows of the shared tiles are padded by 4 floats: the 8 lanes of a
+// 16-byte read phase hit distinct banks for every D that is a multiple of 16.
+
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+#include <stdio.h>
 
 namespace {
 
-constexpr int kBQ = 64;        // query rows per block
-constexpr int kBK = 64;        // keys per tile
-constexpr int kThreads = 256;
 constexpr float kNeg = -2.0e38f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
-// x rounded to the storage type T and widened again
-__device__ __forceinline__ float round_as(float x, float) { return x; }
-__device__ __forceinline__ float round_as(float x, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
+constexpr int kMaxSmem = 232448;      // 227 KB of dynamic shared memory a block
+// returned (not a cudaError_t) when cuTensorMapEncodeTiled refuses a map or
+// cannot be found
+constexpr int kErrTensorMap = 100000;
 
 struct Params {
   int B, H, Kh, Sq, Sk, D, Dv;
@@ -67,95 +92,890 @@ struct Params {
   int causal, window;
 };
 
-template <typename T, int NC>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, Params p) {
-  extern __shared__ float smem[];
+// heads (b, h) whose query tiles the bf16 kernel runs together (see
+// block_tile): their K and V (8 x 655 KB at zamba2's S = 2048, D = 80) stay
+// in L2 while the tiles that read them run
+constexpr int kHeadGroup = 8;
+
+// The block's (b, h) and first query row, from a one-dimensional grid in
+// which the latest query tiles (which see the most keys) come first.
+// grouped: the heads go in groups of kHeadGroup, each group's tiles
+// consecutive (latest first across the group), so the blocks that share a
+// head's K and V run close together and find them in L2 (the bf16 kernel;
+// with every head's latest tile first it read each head's K and V again
+// from device memory for each query tile, and took a third longer at
+// zamba2's shape); else every head's latest tile first (the fp32 kernel,
+// bound by its FMAs, where that order balanced the SMs better)
+__device__ __forceinline__ void block_tile(const Params& p, int bq,
+                                           bool grouped, int& b, int& h,
+                                           int& q_lo) {
+  const int nqt = (p.Sq + bq - 1) / bq, nbh = p.B * p.H;
+  const int g = grouped ? kHeadGroup : nbh;          // heads a group
+  const int first = blockIdx.x / (g * nqt) * g;      // the group's first head
+  const int r = blockIdx.x - first * nqt;
+  const int size = min(g, nbh - first);
+  const int bh = first + r % size, t = r / size;
+  b = bh / p.H;
+  h = bh % p.H;
+  q_lo = (nqt - 1 - t) * bq;
+}
+
+// the key tiles [begin, end) that a query tile [q_lo, q_lo + bq) visits
+// (whole-tile skipping, left-aligned causal mask, window)
+__device__ __forceinline__ void tile_range(const Params& p, int q_lo, int bq,
+                                           int bk, int& begin, int& end) {
+  const int nkt = (p.Sk + bk - 1) / bk;
+  end = p.causal ? min(nkt, (q_lo + bq - 1) / bk + 1) : nkt;
+  const int lo = q_lo - p.window + 1;     // the earliest key a row may see
+  begin = (p.window && lo > 0) ? lo / bk : 0;
+}
+
+// whether any (row, key) of rows [r_lo, r_hi] x keys [k_lo, k_hi] is masked
+__device__ __forceinline__ bool tile_cut(const Params& p, int r_lo, int r_hi,
+                                         int k_lo, int k_hi) {
+  return k_hi >= p.Sk || (p.causal && k_hi > r_lo) ||
+         (p.window && r_hi - k_lo >= p.window);
+}
+
+__device__ __forceinline__ bool key_ok(const Params& p, int qi, int kj) {
+  return kj < p.Sk && (!p.causal || qi >= kj) &&
+         (!p.window || qi - kj < p.window);
+}
+
+// ---------------------------------------------------------------------------
+// bf16: TMA + wgmma
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// arrives from the threads with `pred`: a predicate, not a branch, so no
+// divergent path opens while a wgmma is in flight (ptxas would serialize)
+__device__ __forceinline__ void mbar_arrive_if(uint32_t bar, bool pred) {
+  asm volatile("{\n.reg .pred p;\n"
+               "setp.ne.b32 p, %1, 0;\n"
+               "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n"
+               :: "r"(bar), "r"((int)pred) : "memory");
+}
+
+// named barrier `id` of 256 threads, one consumer warpgroup's turn: that
+// warpgroup syncs on it, and the one before it in the ring arrives (when
+// `pred`) to hand the turn on
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" :: "r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, bool pred) {
+  asm volatile("{\n.reg .pred p;\n"
+               "setp.ne.b32 p, %1, 0;\n"
+               "@p bar.arrive %0, 256;\n}\n"
+               :: "r"(id), "r"((int)pred) : "memory");
+}
+
+// waits for the phase of parity `parity` to complete; a wait that never
+// completes (a broken pipeline) traps after ~2^34 cycles instead of hanging
+// the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  long long t0 = -1;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (t0 < 0) t0 = clock64();
+    else if (clock64() - t0 > (1ll << 34)) __trap();
+  }
+}
+
+// a {64, rows} box of a 4-d map at (col, s, h, b) into shared memory
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int col, int s, int h, int b,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(s),
+         "r"(h), "r"(b), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor for a 128-byte-swizzled operand: 8-row
+// groups 1024 bytes apart (SBO); LBO is the stride between 64-column atoms
+// along M/N of an MN-major operand (unused by a K-major one)
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo) {
+  uint64_t d = (uint64_t)((addr & 0x3FFFF) >> 4);
+  d |= (uint64_t)((lbo >> 4) & 0x3FFF) << 16;
+  d |= (uint64_t)(1024 >> 4) << 32;
+  d |= (uint64_t)1 << 62;               // 128-byte swizzle
+  return d;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {   // at most N groups pending
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// pins the registers a wgmma reads or writes in place in the instruction
+// stream: their definitions and uses cannot move across the fence, commit
+// and wait that bracket the asynchronous wgmma
+template <int N>
+__device__ __forceinline__ void pin(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&d)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(d[i][j]) :: "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// D[64 x N] (+)= A[64 x 16] B[16 x N], A and B K-major in shared memory
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int acc);
+// D[64 x N] += A[64 x 16] B[16 x N], A in registers, B MN-major in shared
+// memory (64-column atoms LBO bytes apart): one instruction for N = 16, 32,
+// 48, 64, 80, 128 and 240, else one 64-column atom at a time (below)
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(acc)
+      : "memory");
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc)
+      : "memory");
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float (&d)[8], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "memory");
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "memory");
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<48>(float (&d)[24], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23"
+      "}, {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "memory");
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "memory");
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<80>(float (&d)[40], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "memory");
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "memory");
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<240>(float (&d)[120], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %125, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n240k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119"
+      "}, {%120, %121, %122, %123}, %124, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "memory");
+}
+
+// any other N (a multiple of 16 above 64): the first 64 columns (one atom
+// of B, the first 32 accumulator registers), then the rest from the next
+// atom, the descriptor's start address advanced by its LBO
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  static_assert(N > 64 && N % 16 == 0, "no wgmma of this width");
+  wgmma_rs<64>(*reinterpret_cast<float (*)[32]>(&d[0]), a, db);
+  wgmma_rs<N - 64>(*reinterpret_cast<float (*)[N / 2 - 32]>(&d[32]), a,
+                   db + ((db >> 16) & 0x3FFF));
+}
+
+// One key tile of the online softmax, base 2, on a consumer thread's part of
+// S: s[i] is row (i >> 1) & 1 ? row1 : row0 and key k0 + 8 (i >> 2) + (i & 1).
+// In place, s becomes the probabilities exp2(s sl2 - m); m, l move to the
+// tile and corr is the factor that rescales the output accumulated so far.
+// CUT: the tile holds masked (row, key) pairs, which become NEG (in units
+// of s sl2); else every score is valid and the scale folds into one FMA.
+template <int BK, bool CUT>
+__device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], float (&m)[2],
+                                             float (&l)[2], float (&corr)[2],
+                                             float sl2, const Params& p,
+                                             int row0, int row1, int k0) {
+  // a row's valid keys, relative to k0: [lo, hi)
+  int lo[2], hi[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = r ? row1 : row0;
+    hi[r] = (p.causal ? min(p.Sk, qi + 1) : p.Sk) - k0;
+    lo[r] = p.window ? qi - p.window + 1 - k0 : -BK;
+  }
+  float mx[2] = {kNeg, kNeg};
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) {
+    const int r = (i >> 1) & 1, c = 8 * (i >> 2) + (i & 1);
+    if (CUT) s[i] = c >= lo[r] && c < hi[r] ? s[i] * sl2 : kNeg;
+    mx[r] = fmaxf(mx[r], s[i]);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    // sl2 > 0, so the max of the rounded s sl2 is the rounded max s sl2
+    const float m_new = fmaxf(m[r], CUT ? mx[r] : mx[r] * sl2);
+    corr[r] = ex2(m[r] - m_new);
+    m[r] = m_new;
+  }
+  float rs[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) {
+    const int r = (i >> 1) & 1;
+    // an uncut tile holds a valid key for every row, so m is finite here
+    s[i] = CUT ? ex2(s[i] - m[r]) : ex2(fmaf(s[i], sl2, -m[r]));
+    rs[r] += s[i];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + rs[r];
+}
+
+
+
+// the tiles of head dims (D, DV): DA 64-column atoms of q and k, VA of v
+// and o
+template <int D, int DV>
+struct Tiles {
+  static constexpr int DA = (D + 63) / 64, VA = (DV + 63) / 64;
+  static constexpr int BK = (DA <= 2 && VA <= 2) ? 128 : 64;
+  // consumer warpgroups of 64 query rows: three where their registers fit
+  // (S, P and O of 64 columns), else two; and the registers they take
+  // from the producer warpgroup with setmaxnreg (the SM's 64K in all)
+  static constexpr int NW = (D <= 64 && DV <= 64) ? 3 : 2;
+  static constexpr int BQ = 64 * NW;             // query rows a block
+  static constexpr int kThreads = 128 * (NW + 1);
+  static constexpr int kProducerRegs = NW == 3 ? 32 : 40;
+  static constexpr int kConsumerRegs = NW == 3 ? 160 : 232;
+  static constexpr int kAtomQ = BQ * 128;        // bytes of one atom
+  static constexpr int kAtomK = BK * 128;
+  static constexpr int kQBytes = DA * kAtomQ;
+  static constexpr int kKBytes = DA * kAtomK;
+  static constexpr int kVBytes = VA * kAtomK;
+  // the ring of K and V stages (three measured no faster on the H100)
+  static constexpr int kStages = 2;
+  static constexpr int kKOff = kQBytes;
+  static constexpr int kVOff = kKOff + kStages * kKBytes;
+  static constexpr int kBarOff = kVOff + kStages * kVBytes;
+  // + the barriers, + 1024 to align the base to the swizzle's 1024 bytes
+  static constexpr int kSmem = kBarOff + 128 + 1024;
+};
+
+// The consumer's steps on one key tile, whose stage's barrier completes
+// with `parity`.  Each wgmma batch is bracketed by pins, a fence and a
+// commit, and no branch holds a wgmma, so ptxas keeps the batches
+// asynchronous.
+
+// S = Q K^T for this warpgroup's 64 rows: D / 16 k-steps of 16 columns,
+// 4 to an atom
+template <int D, int DV>
+__device__ __forceinline__ void issue_qk(float (&s)[Tiles<D, DV>::BK / 2],
+                                         uint32_t sq, uint32_t sk,
+                                         uint32_t full, uint32_t parity) {
+  using T = Tiles<D, DV>;
+  mbar_wait(full, parity);
+  pin(s);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint64_t da = gmma_desc(sq + (kk / 4) * T::kAtomQ + (kk % 4) * 32,
+                                  16);
+    const uint64_t db = gmma_desc(sk + (kk / 4) * T::kAtomK + (kk % 4) * 32,
+                                  16);
+    wgmma_ss<T::BK>(s, da, db, kk > 0);
+  }
+  wgmma_commit();
+}
+
+// O = O corr + P V: one wgmma of N = DV for each 16 keys, its B descriptor
+// stepping across V's 64-column atoms (LBO)
+template <int D, int DV>
+__device__ __forceinline__ void issue_pv(
+    float (&acc)[DV / 2], uint32_t (&pa)[Tiles<D, DV>::BK / 16][4],
+    const float (&corr)[2], uint32_t sv, uint32_t full, uint32_t parity) {
+  using T = Tiles<D, DV>;
+#pragma unroll
+  for (int i = 0; i < DV / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+  mbar_wait(full, parity);
+  pin(acc);
+  pin(pa);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < T::BK / 16; ++kk)
+    wgmma_rs<DV>(acc, pa[kk], gmma_desc(sv + kk * 16 * 128, T::kAtomK));
+  wgmma_commit();
+}
+
+// P rounded to bf16 in the A-fragment layout: the accumulator's 8 values of
+// 16 keys are the 4 registers of one k-step
+template <int BK>
+__device__ __forceinline__ void pack_p(const float (&s)[BK / 2],
+                                       uint32_t (&pa)[BK / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      pa[kk][j] = pack_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
+}
+
+template <int D, int DV>
+__global__ void __launch_bounds__(Tiles<D, DV>::kThreads, 1)
+flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  __nv_bfloat16* __restrict__ o, const Params p) {
+  using T = Tiles<D, DV>;
+  constexpr int BK = T::BK, DA = T::DA, VA = T::VA, S = T::kStages;
+  constexpr int BQ = T::BQ, NW = T::NW;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sq = base, sk = base + T::kKOff, sv = base + T::kVOff;
+  const uint32_t bars = base + T::kBarOff;
+  // barriers: q full; k full, v full, k empty, v empty per stage.  Key
+  // tile it uses stage it % S, whose barriers complete their phase of
+  // parity (it / S) & 1 for it
+  const uint32_t q_full = bars;
+  auto k_full = [&](int st) { return bars + 8 * (1 + st); };
+  auto v_full = [&](int st) { return bars + 8 * (1 + S + st); };
+  auto k_empty = [&](int st) { return bars + 8 * (1 + 2 * S + st); };
+  auto v_empty = [&](int st) { return bars + 8 * (1 + 3 * S + st); };
+
+  const int tid = threadIdx.x;
+  int b, h, q_lo;
+  block_tile(p, BQ, true, b, h, q_lo);
+  const int kh = h / (p.H / p.Kh);
+  int kt_begin, kt_end;
+  tile_range(p, q_lo, BQ, BK, kt_begin, kt_end);
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < S; ++st) {
+      mbar_init(k_full(st), 1);
+      mbar_init(v_full(st), 1);
+      mbar_init(k_empty(st), 4 * NW);  // one arrival per consumer warp
+      mbar_init(v_empty(st), 4 * NW);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    // ---- producer warpgroup: one thread issues every TMA load ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(T::kProducerRegs) : "memory");
+    if (tid == 0) {
+      mbar_expect_tx(q_full, T::kQBytes);
+#pragma unroll
+      for (int a = 0; a < DA; ++a)
+        tma_load(sq + a * T::kAtomQ, &tq, a * 64, q_lo, h, b, q_full);
+      for (int kt = kt_begin, it = 0; kt < kt_end; ++kt, ++it) {
+        const int st = it % S;
+        const uint32_t free_parity = ((it / S) & 1) ^ 1;
+        mbar_wait(k_empty(st), free_parity);
+        mbar_expect_tx(k_full(st), T::kKBytes);
+#pragma unroll
+        for (int a = 0; a < DA; ++a)
+          tma_load(sk + st * T::kKBytes + a * T::kAtomK, &tk, a * 64, kt * BK,
+                   kh, b, k_full(st));
+        mbar_wait(v_empty(st), free_parity);
+        mbar_expect_tx(v_full(st), T::kVBytes);
+#pragma unroll
+        for (int a = 0; a < VA; ++a)
+          tma_load(sv + st * T::kVBytes + a * T::kAtomK, &tv, a * 64, kt * BK,
+                   kh, b, v_full(st));
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: 64 query rows each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                 :: "n"(T::kConsumerRegs) : "memory");
+    const int wg = tid / 128 - 1, warp = (tid / 32) & 3, lane = tid & 31;
+    const int row0 = q_lo + wg * 64 + warp * 16 + lane / 4;  // its rows
+    const int row1 = row0 + 8;
+    const int cq = (lane & 3) * 2;                   // its first column in 8
+    const float sl2 = p.scale * 1.4426950408889634f;  // scale * log2(e)
+
+    float m[2] = {kNeg, kNeg}, l[2] = {0.0f, 0.0f};
+    float acc[DV / 2];           // O: rows row0 / row1, 8-column groups
+#pragma unroll
+    for (int i = 0; i < DV / 2; ++i) acc[i] = 0.0f;
+
+    // Tile it's S = Q K^T is issued before tile it - 1's O += P V, and
+    // tile it's softmax runs while that PV is on the tensor cores.
+    const int n = kt_end - kt_begin;
+    const uint32_t sq_wg = sq + wg * 64 * 128;       // this warpgroup's Q
+    float s[BK / 2];             // S of tile it, then its probabilities
+    uint32_t pa[BK / 16][4] = {};  // P of tile it - 1 in bf16
+    float corr[2] = {1.0f, 1.0f};
+    auto softmax = [&](int it) {
+      pin(s);
+      __syncwarp();
+      mbar_arrive_if(k_empty(it % S), lane == 0);
+      const int k_lo = (kt_begin + it) * BK;
+      // (decided for the block's rows, not the warpgroup's: uniform)
+      if (tile_cut(p, q_lo, q_lo + BQ - 1, k_lo, k_lo + BK - 1))
+        softmax_tile<BK, true>(s, m, l, corr, sl2, p, row0, row1, k_lo + cq);
+      else
+        softmax_tile<BK, false>(s, m, l, corr, sl2, p, row0, row1,
+                                k_lo + cq);
+    };
+    auto pv_done = [&](int it) {
+      pin(acc);
+      __syncwarp();
+      mbar_arrive_if(v_empty(it % S), lane == 0);
+    };
+    // The warpgroups take turns, in a ring, to issue their wgmmas (named
+    // barrier 1 + w is warpgroup w's turn), so one's softmax runs while
+    // another's products hold the tensor cores.  Each issues n + 1 times;
+    // warpgroup 0 goes first, and the last passes the turn on after all
+    // but its last issue.
+    const int my_turn = 1 + wg, next_turn = 1 + (wg + 1) % NW;
+    named_arrive(1, wg == NW - 1 && n > 0);
+    mbar_wait(q_full, 0);
+    if (n > 0) {
+      named_sync(my_turn);
+      issue_qk<D, DV>(s, sq_wg, sk, k_full(0), 0u);
+      named_arrive(next_turn, true);
+      wgmma_wait<0>();
+      softmax(0);
+      pack_p<BK>(s, pa);
+      for (int it = 1; it < n; ++it) {
+        const int st = it % S, pst = (it - 1) % S;
+        named_sync(my_turn);
+        issue_qk<D, DV>(s, sq_wg, sk + st * T::kKBytes, k_full(st),
+                        (it / S) & 1);
+        issue_pv<D, DV>(acc, pa, corr, sv + pst * T::kVBytes, v_full(pst),
+                        ((it - 1) / S) & 1);
+        named_arrive(next_turn, true);
+        wgmma_wait<1>();         // S is done, the PV may not be
+        softmax(it);
+        wgmma_wait<0>();
+        pv_done(it - 1);
+        pack_p<BK>(s, pa);
+      }
+      const int pst = (n - 1) % S;
+      named_sync(my_turn);
+      issue_pv<D, DV>(acc, pa, corr, sv + pst * T::kVBytes, v_full(pst),
+                      ((n - 1) / S) & 1);
+      named_arrive(next_turn, wg != NW - 1);
+      wgmma_wait<0>();
+      pv_done(n - 1);
+    }
+
+    // out = acc / max(l, 1e-20): l summed over the row's 4 lanes
+    float den[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float t = l[r];
+      t += __shfl_xor_sync(0xffffffffu, t, 1);
+      t += __shfl_xor_sync(0xffffffffu, t, 2);
+      den[r] = fmaxf(t, 1e-20f);
+    }
+    __nv_bfloat16* ob = o + b * p.sob + h * p.soh;
+#pragma unroll
+    for (int g = 0; g < DV / 8; ++g)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int qi = r ? row1 : row0;
+        if (qi < p.Sq)
+          *reinterpret_cast<__nv_bfloat162*>(ob + qi * p.sos + 8 * g + cq) =
+              __floats2bfloat162_rn(acc[4 * g + 2 * r] / den[r],
+                                    acc[4 * g + 2 * r + 1] / den[r]);
+      }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fp32: register-tiled FMAs, cp.async double buffering
+// ---------------------------------------------------------------------------
+
+constexpr int kF32Threads = 256;       // 16 x 16
+constexpr int kBK32 = 64;              // keys a tile
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  // 16 bytes, or 16 zero bytes when !valid (src is then not read)
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// shared memory of the fp32 kernel: q (BQ, D + 4), `stages` k (64, D + 4)
+// and v (64, Dv + 4) tiles, p (BQ, 64 + 4)
+__host__ __device__ constexpr size_t f32_smem(int ri, int stages, int D,
+                                           int Dv) {
+  return sizeof(float) * ((size_t)16 * ri * (D + 4) +
+                          (size_t)stages * kBK32 * (D + 4) +
+                          (size_t)stages * kBK32 * (Dv + 4) +
+                          (size_t)16 * ri * (kBK32 + 4));
+}
+
+// RI query rows and NC output columns a thread; BQ = 16 RI rows a block
+template <int RI, int NC>
+__global__ void __launch_bounds__(kF32Threads)
+flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
+                 const Params p, const int stages) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int BQ = 16 * RI;
   const int D = p.D, Dv = p.Dv;
-  const int ldq = D + 1, ldv = Dv + 1, ldp = kBK + 1;
-  float* qs = smem;                    // (kBQ, D + 1)
-  float* ks = qs + kBQ * ldq;          // (kBK, D + 1)
-  float* vs = ks + kBK * ldq;          // (kBK, Dv + 1)
-  float* ps = vs + kBK * ldv;          // (kBQ, kBK + 1) probabilities
+  const int ldq = D + 4, ldv = Dv + 4, ldp = kBK32 + 4;
+  float* qs = smem;
+  float* ks = qs + BQ * ldq;
+  float* vs = ks + stages * kBK32 * ldq;
+  float* ps = vs + stages * kBK32 * ldv;
 
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
-  const int bh = blockIdx.x;
-  const int b = bh / p.H, h = bh - b * p.H;
+  int b, h, q_lo;
+  block_tile(p, BQ, false, b, h, q_lo);
   const int kh = h / (p.H / p.Kh);
-  const int q_lo = (gridDim.y - 1 - blockIdx.y) * kBQ;   // latest tiles first
-  const T* qb = q + b * p.sqb + h * p.sqh;
-  const T* kb = k + b * p.skb + kh * p.skh;
-  const T* vb = v + b * p.svb + kh * p.svh;
+  const float* qb = q + b * p.sqb + h * p.sqh;
+  const float* kb = k + b * p.skb + kh * p.skh;
+  const float* vb = v + b * p.svb + kh * p.svh;
+  const int d4 = D / 4, v4 = Dv / 4;
+  int kt_begin, kt_end;
+  tile_range(p, q_lo, BQ, kBK32, kt_begin, kt_end);
+  const int n = kt_end - kt_begin;
 
-  for (int e = tid; e < kBQ * D; e += kThreads) {
-    const int r = e / D, d = e - r * D;
-    const int qi = q_lo + r;
-    qs[r * ldq + d] = qi < p.Sq ? to_f32(qb[qi * p.sqs + d]) : 0.0f;
+  auto load_kv = [&](int kt, int buf) {
+    float* kd = ks + buf * kBK32 * ldq;
+    float* vd = vs + buf * kBK32 * ldv;
+    for (int e = tid; e < kBK32 * d4; e += kF32Threads) {
+      const int r = e / d4, c = (e - r * d4) * 4, kj = kt * kBK32 + r;
+      cp_async16(kd + r * ldq + c, kb + min(kj, p.Sk - 1) * p.sks + c,
+                 kj < p.Sk);
+    }
+    for (int e = tid; e < kBK32 * v4; e += kF32Threads) {
+      const int r = e / v4, c = (e - r * v4) * 4, kj = kt * kBK32 + r;
+      cp_async16(vd + r * ldv + c, vb + min(kj, p.Sk - 1) * p.svs + c,
+                 kj < p.Sk);
+    }
+  };
+
+  for (int e = tid; e < BQ * d4; e += kF32Threads) {
+    const int r = e / d4, c = (e - r * d4) * 4, qi = q_lo + r;
+    cp_async16(qs + r * ldq + c, qb + min(qi, p.Sq - 1) * p.sqs + c,
+               qi < p.Sq);
   }
+  if (n > 0) load_kv(kt_begin, 0);
+  cp_commit();
 
-  float m[4], l[4], acc[4][NC];
+  float m[RI], l[RI], acc[RI][NC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     m[i] = kNeg;
     l[i] = 0.0f;
 #pragma unroll
     for (int c = 0; c < NC; ++c) acc[i][c] = 0.0f;
   }
 
-  // the key tiles this query tile needs (whole-tile skipping)
-  const int nkt = (p.Sk + kBK - 1) / kBK;
-  int kt_end = nkt;
-  if (p.causal) kt_end = min(nkt, (q_lo + kBQ - 1) / kBK + 1);
-  int kt_begin = 0;
-  if (p.window) {
-    const int lo = q_lo - p.window + 1;     // the earliest key a row may see
-    kt_begin = lo > 0 ? lo / kBK : 0;
-  }
-
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k_lo = kt * kBK;
-    __syncthreads();                   // the last tile's k, v and p are used
-    for (int e = tid; e < kBK * D; e += kThreads) {
-      const int r = e / D, d = e - r * D;
-      const int kj = k_lo + r;
-      ks[r * ldq + d] = kj < p.Sk ? to_f32(kb[kj * p.sks + d]) : 0.0f;
+  for (int it = 0; it < n; ++it) {
+    const int kt = kt_begin + it, k_lo = kt * kBK32;
+    const int buf = stages == 2 ? (it & 1) : 0;
+    if (stages == 1 && it > 0) {
+      load_kv(kt, 0);
+      cp_commit();
     }
-    for (int e = tid; e < kBK * Dv; e += kThreads) {
-      const int r = e / Dv, d = e - r * Dv;
-      const int kj = k_lo + r;
-      vs[r * ldv + d] = kj < p.Sk ? to_f32(vb[kj * p.svs + d]) : 0.0f;
+    if (stages == 2 && it + 1 < n) {   // the next tile loads under this one
+      load_kv(kt + 1, buf ^ 1);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
     }
     __syncthreads();
 
-    float s[4][4];
+    const float* kt_s = ks + buf * kBK32 * ldq;
+    float s[RI][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-    for (int d = 0; d < D; ++d) {
-      float a[4], bk[4];
+#pragma unroll 2
+    for (int d = 0; d < D; d += 4) {
+      float4 a[RI], bk[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qs[(ty + 16 * i) * ldq + d];
+      for (int i = 0; i < RI; ++i)
+        a[i] = *reinterpret_cast<const float4*>(qs + (ty + 16 * i) * ldq + d);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) bk[j] = ks[(tx + 16 * j) * ldq + d];
+      for (int j = 0; j < 4; ++j)
+        bk[j] = *reinterpret_cast<const float4*>(kt_s + (tx + 16 * j) * ldq + d);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], bk[j], s[i][j]);
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(a[i].x, bk[j].x, s[i][j]);
+          s[i][j] = fmaf(a[i].y, bk[j].y, s[i][j]);
+          s[i][j] = fmaf(a[i].z, bk[j].z, s[i][j]);
+          s[i][j] = fmaf(a[i].w, bk[j].w, s[i][j]);
+        }
     }
 
+    const bool cut = tile_cut(p, q_lo, q_lo + BQ - 1, k_lo, k_lo + kBK32 - 1);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RI; ++i) {
       const int qi = q_lo + ty + 16 * i;
       float mx = kNeg;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int kj = k_lo + tx + 16 * j;
-        bool ok = kj < p.Sk;
-        if (p.causal) ok = ok && qi >= kj;
-        if (p.window) ok = ok && qi - kj < p.window;
+        const bool ok = !cut || key_ok(p, qi, k_lo + tx + 16 * j);
         s[i][j] = ok ? s[i][j] * p.scale : kNeg;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -169,7 +989,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         const float pv = expf(s[i][j] - m_new);
         rs += pv;
-        ps[(ty + 16 * i) * ldp + tx + 16 * j] = round_as(pv, T());
+        ps[(ty + 16 * i) * ldp + tx + 16 * j] = pv;
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
@@ -181,62 +1001,165 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
 
-    for (int j = 0; j < kBK; ++j) {
-      float pr[4];
+    const float* vt = vs + buf * kBK32 * ldv;
+#pragma unroll 2
+    for (int j = 0; j < kBK32; j += 4) {
+      float4 pr[RI];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pr[i] = ps[(ty + 16 * i) * ldp + j];
+      for (int i = 0; i < RI; ++i)
+        pr[i] = *reinterpret_cast<const float4*>(ps + (ty + 16 * i) * ldp + j);
 #pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int col = tx + 16 * c;
-        const float vv = col < Dv ? vs[j * ldv + col] : 0.0f;
+      for (int jj = 0; jj < 4; ++jj) {
+        float vv[NC];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(pr[i], vv, acc[i][c]);
+        for (int c = 0; c < NC; ++c) {
+          const int col = tx + 16 * c;
+          vv[c] = col < Dv ? vt[(j + jj) * ldv + col] : 0.0f;
+        }
+#pragma unroll
+        for (int i = 0; i < RI; ++i) {
+          const float pij = jj == 0 ? pr[i].x : jj == 1 ? pr[i].y
+                          : jj == 2 ? pr[i].z : pr[i].w;
+#pragma unroll
+          for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(pij, vv[c], acc[i][c]);
+        }
       }
     }
+    __syncthreads();                   // this tile's k, v and p are used
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     const int qi = q_lo + ty + 16 * i;
     if (qi >= p.Sq) continue;
     const float den = fmaxf(l[i], 1e-20f);
-    T* orow = o + b * p.sob + h * p.soh + qi * p.sos;
+    float* orow = o + b * p.sob + h * p.soh + qi * p.sos;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int col = tx + 16 * c;
-      if (col < Dv) store(orow + col, acc[i][c] / den);
+      if (col < Dv) orow[col] = acc[i][c] / den;
     }
   }
 }
 
-template <typename T, int NC>
-int launch_nc(const void* q, const void* k, const void* v, void* o,
-              const Params& p, cudaStream_t stream) {
-  const size_t smem = sizeof(float) *
-      ((size_t)(kBQ + kBK) * (p.D + 1) + (size_t)kBK * (p.Dv + 1) +
-       (size_t)kBQ * (kBK + 1));
-  auto kern = &flash_fwd_kernel<T, NC>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(p.B * p.H, (p.Sq + kBQ - 1) / kBQ);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), p);
+}  // namespace
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+namespace {
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point
+// query, so the library needs no -lcuda
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// a map of a bf16 tensor as (feature, s, head, b) with element strides over
+// (s, head, b), read in {64, rows} boxes with the 128-byte swizzle; whatever
+// lies past the tensor's edges reads as 0
+int make_map(CUtensorMap* map, const void* ptr, int d, int s, int heads,
+             int batch, long long ss, long long sh, long long sb, int rows) {
+  EncodeTiled enc = encoder();
+  if (!enc) return kErrTensorMap;
+  cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)s, (cuuint64_t)heads,
+                        (cuuint64_t)batch};
+  cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
+                           (cuuint64_t)sb * 2};
+  cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  cuuint32_t unit[4] = {1, 1, 1, 1};
+  CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                   const_cast<void*>(ptr), dims, strides, box, unit,
+                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrTensorMap + (int)r;
+}
+
+template <int D, int DV>
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                const Params& p, cudaStream_t stream) {
+  using T = Tiles<D, DV>;
+  static_assert(T::kSmem <= kMaxSmem, "the bf16 tiles exceed 227 KB");
+  CUtensorMap tq, tk, tv;
+  int err = make_map(&tq, q, D, p.Sq, p.H, p.B, p.sqs, p.sqh, p.sqb, T::BQ);
+  if (!err) err = make_map(&tk, k, D, p.Sk, p.Kh, p.B, p.sks, p.skh, p.skb,
+                           T::BK);
+  if (!err) err = make_map(&tv, v, DV, p.Sk, p.Kh, p.B, p.svs, p.svh, p.svb,
+                           T::BK);
+  if (err) return err;
+  auto kern = &flash_bf16_kernel<D, DV>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(p.B * p.H * ((p.Sq + T::BQ - 1) / T::BQ));
+  kern<<<grid, T::kThreads, T::kSmem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), p);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o,
-           const Params& p, cudaStream_t stream) {
-  const int need = (p.Dv + 15) / 16;
-  if (need <= 1) return launch_nc<T, 1>(q, k, v, o, p, stream);
-  if (need <= 2) return launch_nc<T, 2>(q, k, v, o, p, stream);
-  if (need <= 4) return launch_nc<T, 4>(q, k, v, o, p, stream);
-  if (need <= 5) return launch_nc<T, 5>(q, k, v, o, p, stream);
-  if (need <= 8) return launch_nc<T, 8>(q, k, v, o, p, stream);
-  if (need <= 12) return launch_nc<T, 12>(q, k, v, o, p, stream);
-  if (need <= 16) return launch_nc<T, 16>(q, k, v, o, p, stream);
+// double-buffered where two stages fit 227 KB, else single-buffered
+template <int RI, int NC>
+int launch_f32_nc(const void* q, const void* k, const void* v, void* o,
+                  const Params& p, cudaStream_t stream) {
+  const int stages = f32_smem(RI, 2, p.D, p.Dv) <= (size_t)kMaxSmem ? 2 : 1;
+  const size_t smem = f32_smem(RI, stages, p.D, p.Dv);
+  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  auto kern = &flash_f32_kernel<RI, NC>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(p.B * p.H * ((p.Sq + 16 * RI - 1) / (16 * RI)));
+  kern<<<grid, kF32Threads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), p, stages);
+  return (int)cudaGetLastError();
+}
+
+// the fp32 register tile of head dims (D, DV): Dv / 16 output columns a
+// thread, and 8 query rows where one stage of 8-row tiles fits 227 KB,
+// else 4 (D = Dv = 192 and above)
+template <int D, int DV>
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               const Params& p, cudaStream_t st) {
+  constexpr int RI = f32_smem(8, 1, D, DV) <= (size_t)kMaxSmem ? 8 : 4;
+  return launch_f32_nc<RI, DV / 16>(q, k, v, o, p, st);
+}
+
+// the one list of (D, Dv) pairs the kernels are instantiated for, in both
+// dtypes: every multiple of 16 up to 256 with Dv = D, and MLA's 192 / 128.
+// flash_attention.py reads it from here (supported_head_dims).
+#define FA_HEAD_DIMS(X)                                                     \
+  X(16, 16) X(32, 32) X(48, 48) X(64, 64) X(80, 80) X(96, 96) X(112, 112)  \
+  X(128, 128) X(144, 144) X(160, 160) X(176, 176) X(192, 192) X(208, 208) \
+  X(224, 224) X(240, 240) X(256, 256) X(192, 128)
+
+// any other pair is refused
+int launch(int dtype, const void* q, const void* k, const void* v, void* o,
+           const Params& p, cudaStream_t st) {
+#define FA_CASE(D_, DV_)                                     \
+  if (p.D == D_ && p.Dv == DV_)                              \
+    return dtype ? launch_bf16<D_, DV_>(q, k, v, o, p, st)   \
+                 : launch_f32<D_, DV_>(q, k, v, o, p, st);
+  FA_HEAD_DIMS(FA_CASE)
+#undef FA_CASE
   return (int)cudaErrorInvalidValue;
 }
 
@@ -246,28 +1169,33 @@ extern "C" {
 
 // dtype: 0 = fp32, 1 = bf16 (q, k, v and o alike).  strides holds 12 element
 // strides: q's, k's, v's and o's over (b, h, s), in that order; the feature
-// dimension of each is contiguous.  Returns a cudaError_t code: 0 when the
-// launch was accepted.
+// dimension of each is contiguous, (D, Dv) is a pair of FA_HEAD_DIMS, and
+// base addresses and strides are multiples of 16 bytes (TMA, cp.async).
+// Returns 0 when the launch was accepted, else a cudaError_t code or, from
+// kErrTensorMap on, a tensor map that could not be made.
 int fa_forward(int dtype, const void* q, const void* k, const void* v,
                void* o, int B, int H, int Kh, int Sq, int Sk, int D, int Dv,
                const long long* strides, float scale, int causal, int window,
                void* stream) {
   if (B < 1 || H < 1 || Kh < 1 || H % Kh != 0 || Sq < 1 || Sk < 1 ||
-      D < 1 || Dv < 1 || window < 0)
+      window < 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   Params p{B, H, Kh, Sq, Sk, D, Dv,
            strides[0], strides[1], strides[2], strides[3], strides[4],
            strides[5], strides[6], strides[7], strides[8], strides[9],
            strides[10], strides[11], scale, causal, window};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return launch<float>(q, k, v, o, p, st);
-    case 1: return launch<__nv_bfloat16>(q, k, v, o, p, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return launch(dtype, q, k, v, o, p, static_cast<cudaStream_t>(stream));
 }
 
 const char* fa_error_string(int code) {
+  static char msg[96];
+  if (code == kErrTensorMap)
+    return "cuTensorMapEncodeTiled is not available";
+  if (code > kErrTensorMap) {
+    snprintf(msg, sizeof msg, "cuTensorMapEncodeTiled refused a map "
+             "(CUresult %d)", code - kErrTensorMap);
+    return msg;
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

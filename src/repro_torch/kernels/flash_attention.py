@@ -5,9 +5,10 @@ The prefill attention of the LM stack.  ``flash_attention_cuda`` is the
 port of the reference's ``flash_attention_pallas``.  On a CUDA tensor it
 launches the hand-written kernel in ``csrc/flash_attention.cu`` (built with
 ``nvcc`` for ``sm_90a`` at first use into ``build/kernels/``, bound through
-``ctypes``); on a CPU tensor it runs ``flash_attention_plain``, the same
-function in plain PyTorch.  Any other device raises: there is no fallback
-from the kernel to the plain version.
+``ctypes``): in bf16 on the tensor cores (``wgmma``) fed by TMA loads, in
+fp32 on the FMA units, exact.  On a CPU tensor it runs
+``flash_attention_plain``, the same function in plain PyTorch.  Any other
+device raises: there is no fallback from the kernel to the plain version.
 
 Contract (the reference kernel's):
 
@@ -22,19 +23,23 @@ Contract (the reference kernel's):
 
 The kernel takes strides, so (B, S, H, D) tensors of the model go in as
 ``transpose(1, 2)`` views without a copy (the feature dimension must be
-contiguous); the output is allocated (B, Sq, H, Dv) and returned as its
-(B, H, Sq, Dv) view, so the model's transpose back is contiguous.
+contiguous, and base addresses and strides multiples of 16 bytes, for TMA
+and ``cp.async``); the output is allocated (B, Sq, H, Dv) and returned as
+its (B, H, Sq, Dv) view, so the model's transpose back is contiguous.  The
+kernel takes the (D, Dv) pairs of ``supported_head_dims()``: every multiple
+of 16 up to 256 with Dv = D, and 192 / 128.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+import re
 
 import torch
 
 from repro_torch.kernels import _build
 
 NEG = -2.0e38
-MAX_HEAD_DIM = 256      # the widest instantiated thread layout (16 x 16)
 
 # launches of the CUDA kernel
 launches = 0
@@ -94,6 +99,34 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0):
     return o.reshape(B, H, Sq, v.shape[-1]).to(q.dtype)
 
 
+@functools.cache
+def supported_head_dims() -> tuple:
+    """The (D, Dv) pairs the CUDA kernel takes, in both dtypes: the list
+    ``FA_HEAD_DIMS`` that ``csrc/flash_attention.cu`` instantiates, read
+    from the source, so that there is one list.  The plain version (CPU)
+    takes any."""
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    body = re.search(r"#define FA_HEAD_DIMS\(X\)((?:.*\\\n)*.*)", src)
+    if body is None:
+        raise RuntimeError("flash_attention.cu defines no FA_HEAD_DIMS")
+    return tuple((int(d), int(dv))
+                 for d, dv in re.findall(r"X\((\d+), (\d+)\)", body[1]))
+
+
+def _tma_strides(t):
+    """t's element strides over (b, h, s), 0 for a dimension of size 1
+    (never stepped); raises unless the base address and every stride that
+    is stepped are multiples of 16 bytes."""
+    strides = [st if n > 1 else 0 for n, st in zip(t.shape[:3],
+                                                   t.stride()[:3])]
+    if t.data_ptr() % 16 or any(st * t.element_size() % 16
+                                for st in strides):
+        raise ValueError(f"flash_attention: the kernel needs 16-byte aligned "
+                         f"rows (TMA, cp.async); got strides {t.stride()} "
+                         f"of {t.dtype} at offset {t.data_ptr() % 16}")
+    return strides
+
+
 def _check(q, k, v):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention: q, k and v must be 4-D")
@@ -121,16 +154,18 @@ def _flash_cuda(q, k, v, causal: bool, window: int):
                          "contiguous")
     B, H, Sq, D = q.shape
     Kh, Sk, Dv = k.shape[1], k.shape[2], v.shape[3]
-    if D > MAX_HEAD_DIM or Dv > MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention: head dims {D}/{Dv} above the "
-                         f"kernel's {MAX_HEAD_DIM}")
-    if -(-Sq // 64) > 65535:
-        raise ValueError(f"flash_attention: Sq={Sq} too long for the grid")
+    if (D, Dv) not in supported_head_dims():
+        raise ValueError(f"flash_attention: no kernel for head dims D={D}, "
+                         f"Dv={Dv}: it takes (D, Dv) in "
+                         f"{supported_head_dims()}")
+    if B * H * -(-Sq // 64) >= 2 ** 31:
+        raise ValueError(f"flash_attention: B={B} H={H} Sq={Sq} too large "
+                         "for the grid")
+    in_strides = [*_tma_strides(q), *_tma_strides(k), *_tma_strides(v)]
     lib = _library()
     o = torch.empty((B, Sq, H, Dv), dtype=q.dtype,
                     device=q.device).transpose(1, 2)
-    strides = (ctypes.c_longlong * 12)(
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3])
+    strides = (ctypes.c_longlong * 12)(*in_strides, *o.stride()[:3])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.fa_forward(_DTYPE_CODE[q.dtype], q.data_ptr(),

@@ -155,6 +155,66 @@ def test_flash_oracles_agree_and_pin_alignment():
         atol=2e-5, rtol=1e-4)
 
 
+def _attn_head_dims(cfg):
+    """(D, Dv) of the attention a config runs through the flash kernel:
+    qk_nope + qk_rope and v_head_dim for MLA, head_dim for the others."""
+    if cfg.attn_kind == "mla":
+        return (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.v_head_dim)
+    return (cfg.dh, cfg.dh)
+
+
+# every full-width config whose family attends with softmax; xLSTM's mLSTM
+# does not go through the flash kernel
+ATTN_ARCHS = [a for a in cb.ARCH_IDS if cb.get(a).block_kind != "xlstm"]
+
+
+@pytest.mark.parametrize("arch", ATTN_ARCHS)
+def test_flash_kernel_takes_every_reference_head_dim(arch):
+    """No full-width config can reach the kernel's head-dim raise on the
+    card unannounced."""
+    D, Dv = _attn_head_dims(cb.get(arch))
+    assert (D, Dv) in FA.supported_head_dims(), (arch, D, Dv)
+    assert D % 16 == 0 and Dv % 16 == 0 and max(D, Dv) <= 256
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_flash_kernel_takes_the_smoke_head_dims(arch):
+    """``run_lm(arch)`` serves the port's smoke config by default, on the
+    card: its head dims must have a kernel too."""
+    cfg = pcb.smoke(arch)
+    assert (cfg.dh, cfg.dh) in FA.supported_head_dims(), (arch, cfg.dh)
+
+
+def test_flash_kernel_head_dims_are_every_multiple_of_16():
+    """The kernel is instantiated for every multiple of 16 up to 256 with
+    Dv = D, and for MLA's 192 / 128, each pair once."""
+    pairs = FA.supported_head_dims()
+    assert len(set(pairs)) == len(pairs)
+    assert set(pairs) == {(d, d) for d in range(16, 257, 16)} | {(192, 128)}
+
+
+@pytest.mark.parametrize("D", [8, 16, 24])
+def test_flash_cpu_takes_any_head_dim(D):
+    """The CPU path (the plain version) takes any head dim and agrees with
+    the reference's oracle there; the CUDA path's checks refuse a head dim
+    that is no multiple of 16 (and misaligned rows) before any library
+    loads."""
+    q, k, v = _flash_inputs((1, 4, 2, 48, 48, D, D))
+    got = FA.flash_attention_cuda(_t(q), _t(k), _t(v))
+    want = R.flash_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=1e-4)
+    assert ((D, D) in FA.supported_head_dims()) == (D % 16 == 0)
+    if D % 16:
+        with pytest.raises(ValueError, match="head dims"):
+            FA._flash_cuda(_t(q), _t(k), _t(v), True, 0)
+    q, k, v = (_t(x).bfloat16() for x in
+               _flash_inputs((1, 2, 2, 16, 16, 65, 64)))
+    with pytest.raises(ValueError, match="16-byte"):
+        FA._flash_cuda(q[..., 1:], k[..., 1:], v, True, 0)
+
+
 # ---------------------------------------------------------------------------
 # Mamba-2 SSD: the plain version vs the Pallas kernel and the oracle
 # ---------------------------------------------------------------------------
