@@ -12,11 +12,18 @@ Phases, each printing its lines; any failure exits non-zero:
    the flash library's SASS (``cuobjdump``), which must hold both;
 3. gallery-match kernel vs plain: the kernel against its plain PyTorch
    version on the card, for fp32, bf16 and int8 galleries at Q in
-   {1, 16, 256}, N in {1000, 262144}, D = 128, k in {1, 5}, plus k > N and
-   galleries that take the kernel's element-wise load path; then the
-   kernel's, the plain version's and ``torch.topk(q @ g.T)``'s device
-   times at N = 262144 (from a profiler trace) beside the card's bound for
-   the same work;
+   {1, 16, 256}, N in {1000, 262144}, D = 128, k in {1, 5}, plus k > N,
+   galleries that take the tiled path's element-wise loads, and the
+   small-Q path's edges: Q in {1, 2, 3, Q_S, Q_S + 1} x N in {1, 63, 64,
+   65, 1000, 1024, 262144} x k in {1, 8, 64}, and its largest Q * k
+   (Q = 1, k = 32; Q = 4, k = 8); equal rows scored by two
+   blocks (one in the ragged last range) must tie to the lower index on
+   both paths; two runs at the serving and coarse-scan shapes must be
+   bit-identical; the check must reject a planted fault (top score x1.05,
+   first two indices swapped); then the kernel's (with the path it took),
+   the plain version's and ``torch.topk(q @ g.T)``'s device times at
+   N = 262144, Q in {1, Q_S, 16, 256} (from a profiler trace) beside the
+   card's bound for the same work;
 4. rescore kernel vs plain: the cell-rescore kernel against its plain
    version over the ragged cells of one 262,144-row shard (pad rows
    poisoned, so a read of one shows), at Q in {1, 16, 256}, c in
@@ -45,7 +52,9 @@ Phases, each printing its lines; any failure exits non-zero:
 8. exact main path: ``run_biometric`` on the card once per match dtype,
    over a 4-shard watchlist of the 10 pipeline subjects plus 1,048,576
    random unit distractors (512 MiB of fp32 templates), 30 frames with the
-   live hot-swap; then ``run_fleet`` for 3 s of offered traffic;
+   live hot-swap; then ``run_fleet`` for 3 s of offered traffic; and how
+   many gallery-match calls had each query count Q, and which path each
+   took;
 9. ANN main path: one such watchlist, indexed once (1024 cells), served by
    ``run_biometric(match_mode="ann", nprobe=8)`` once per match dtype; the
    served labels are held against the plain versions run on the kernels'
@@ -182,10 +191,13 @@ def run_library(torch, q, g, k):
     return torch.topk(qn.to(g.dtype) @ g.T, k, dim=1)
 
 
-def compare(torch, gm, dtype, Q, N, k, gen, D=128, misalign=False):
+def compare(torch, gm, dtype, Q, N, k, gen, D=128, misalign=False,
+            fault=None):
     """Kernel vs plain on one shape; returns the max abs score error.
     ``misalign`` starts the gallery one element past a 16-byte boundary,
-    which sends the kernel down its element-wise load path."""
+    which sends the kernel down its tiled path's element-wise loads.
+    ``fault`` plants a fault in the kernel's (scores, indices) before they
+    are checked (``check_faults``: the check must then fail)."""
     q = torch.randn((Q, D), generator=gen, device=DEV) * 3.0
     g, scale = gallery(torch, gm, dtype, N + misalign, D, gen)
     if misalign:
@@ -193,6 +205,8 @@ def compare(torch, gm, dtype, Q, N, k, gen, D=128, misalign=False):
         scale = scale[:N] if scale is not None else None
     s, i = run_kernel(gm, q, g, scale, k)
     torch.cuda.synchronize()
+    if fault is not None:
+        s, i = fault(s.clone(), i.clone())
     ps, pi = run_plain(torch, gm, q, g, scale, k)
     k_eff = min(k, N)
     if tuple(s.shape) != (Q, k) or tuple(i.shape) != (Q, k):
@@ -320,29 +334,130 @@ def flash_sass(FA):
     return counts
 
 
+def fault_top_score(s, i):
+    """A planted fault: each query's top score PLANT times too large."""
+    s[:, 0] *= PLANT
+    return s, i
+
+
+def fault_swap(s, i):
+    """A planted fault: each query's first two indices swapped."""
+    i[:, [0, 1]] = i[:, [1, 0]]
+    return s, i
+
+
+def check_faults(torch, gm, gen):
+    """``compare`` must reject the kernel's result with a planted fault, on
+    each path and in each dtype."""
+    n = 0
+    for dtype in DTYPES:
+        for Q in (1, gm.SMALL_Q + 1):
+            for fault in (fault_top_score, fault_swap):
+                try:
+                    compare(torch, gm, dtype, Q, 1000, 8, gen, fault=fault)
+                except AssertionError:
+                    n += 1
+                    continue
+                raise AssertionError(f"{dtype} Q={Q}: compare passed the "
+                                     f"planted fault {fault.__name__}")
+    print(f"[kernel] compare rejects both planted faults ({n} of {n}: top "
+          f"score x{PLANT}, first two indices swapped) on both paths")
+
+
+def block_of(gm, dtype, N, row):
+    """The block of the last launch's grid that scores ``row``."""
+    path, S = gm.last_plan
+    if path == "small":
+        item = {"fp32": 4, "bf16": 2, "int8": 1}[dtype]
+        group = row // (gm._GROUP_BYTES // (gm.SMALL_D * item))
+        return group % (S * gm._SMALL_WARPS) // gm._SMALL_WARPS
+    return row // -(-N // S)
+
+
+def check_ties(torch, gm, gen):
+    """Equal rows i < j scored by different blocks, j in the ragged last
+    range, and queries equal to them: k = 1 must return i, and k = 2 must
+    return (i, j) with equal scores."""
+    N, D, i, j = N_BIG + 5, 128, 3, N_BIG + 3
+    for dtype in DTYPES:
+        g, scale = gallery(torch, gm, dtype, N, D, gen)
+        g[j] = g[i]
+        if scale is not None:
+            scale[j] = scale[i]
+        row = g[i].float() * (scale[i] if scale is not None else 1.0)
+        for Q in (1, gm.SMALL_Q + 1):
+            q = row.expand(Q, D).contiguous()
+            s1, i1 = run_kernel(gm, q, g, scale, 1)
+            s2, i2 = run_kernel(gm, q, g, scale, 2)
+            bi, bj = block_of(gm, dtype, N, i), block_of(gm, dtype, N, j)
+            if bi == bj:
+                raise AssertionError(f"{dtype} Q={Q}: rows {i} and {j} fall "
+                                     f"in one block ({gm.last_plan})")
+            if not (bool((i1[:, 0] == i).all()) and bool((i2[:, 0] == i).all())
+                    and bool((i2[:, 1] == j).all())
+                    and torch.equal(s2[:, 0], s2[:, 1])):
+                raise AssertionError(f"{dtype} Q={Q}: equal rows {i}, {j} "
+                                     f"gave k=1 {i1[:, 0].tolist()}, k=2 "
+                                     f"{i2.tolist()} {s2.tolist()}")
+            print(f"[kernel] {dtype} Q={Q} ({gm.last_plan[0]}): equal rows "
+                  f"{i} (block {bi}) and {j} (block {bj} of "
+                  f"{gm.last_plan[1]}, ragged last range) tie: k=1 -> {i}, "
+                  f"k=2 -> ({i}, {j})")
+
+
+def check_repeatable(torch, gm, gen):
+    """Two runs bit-identical at the serving shape and the coarse scan's."""
+    for dtype in DTYPES:
+        for N, k in ((N_BIG, 1), (CELLS, NPROBE)):
+            g, scale = gallery(torch, gm, dtype, N, 128, gen)
+            q = torch.randn((1, 128), generator=gen, device=DEV)
+            a = run_kernel(gm, q, g, scale, k)
+            b = run_kernel(gm, q, g, scale, k)
+            if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+                raise AssertionError(f"{dtype} N={N} k={k}: two runs differ")
+        print(f"[kernel] {dtype}: two runs bit-identical at Q=1 N={N_BIG} "
+              f"k=1 and at Q=1 N={CELLS} k={NPROBE} ({gm.last_plan[0]} path)")
+
+
 def phase_kernel(torch, gm):
     gen = torch.Generator(device=DEV).manual_seed(1234)
+    QS = gm.SMALL_Q
     shapes = [(Q, N, k, 128, False) for Q in (1, 16, 256)
               for N in (1000, N_BIG) for k in (1, 5)]
     shapes += [(3, 3, 5, 128, False), (5, 1, 2, 128, False),  # k > N, Q < 8
                # the element-wise load path: long rows, odd rows, unaligned
                (5, 1000, 5, 260, False), (3, 777, 3, 36, False),
-               (33, 999, 4, 128, True)]
+               (33, 999, 4, 128, True), (1, 999, 4, 128, True)]
+    # the small-Q path's edges, and the tiled path just above it (in Q,
+    # and in Q * k: the small-Q path's largest k at Q = 1 and 4)
+    shapes += [(Q, N, k, 128, False) for Q in (1, 2, 3, QS, QS + 1)
+               for N in (1, 63, 64, 65, 1000, 1024, N_BIG)
+               for k in (1, 8, 64) if k < 64 or N >= 64]
+    shapes += [(Q, N, gm.SMALL_QK // Q, 128, False) for Q in (1, 4)
+               for N in (65, 1000, N_BIG)]
     errs = {}
     for dtype in DTYPES:
-        errs[dtype] = max(compare(torch, gm, dtype, Q, N, k, gen, D, mis)
-                          for Q, N, k, D, mis in shapes)
-        print(f"[kernel] {dtype}: kernel == plain on {len(shapes)} shapes, max abs "
-              f"score error {errs[dtype]:.3g} (tolerance {TOL})")
+        err, paths = 0.0, {"small": 0, "tiled": 0}
+        for Q, N, k, D, mis in shapes:
+            err = max(err, compare(torch, gm, dtype, Q, N, k, gen, D, mis))
+            paths[gm.last_plan[0]] += 1
+        errs[dtype] = err
+        print(f"[kernel] {dtype}: kernel == plain on {len(shapes)} shapes "
+              f"({paths['small']} small-Q path, {paths['tiled']} tiled), max "
+              f"abs score error {err:.3g} (tolerance {TOL})")
+    check_ties(torch, gm, gen)
+    check_repeatable(torch, gm, gen)
+    check_faults(torch, gm, gen)
     timings = {}
     D = 128
     for dtype in DTYPES:
         shards = [gallery(torch, gm, dtype, N_BIG, D, gen) for _ in range(4)]
-        for Q in (1, 16, 256):
+        for Q in (1, QS, 16, 256):
             for k in (1, 5):
                 q = torch.randn((Q, D), generator=gen, device=DEV)
                 kms, kcall = timed(torch, lambda g, sc: run_kernel(
                     gm, q, g, sc, k), shards)
+                path = gm.last_plan
                 pms, _ = timed(torch, lambda g, sc: run_plain(
                     torch, gm, q, g, sc, k), shards)
                 lms = None
@@ -350,12 +465,12 @@ def phase_kernel(torch, gm):
                     lms, _ = timed(torch, lambda g, sc: run_library(
                         torch, q, g, k), shards)
                 bms, by = bound(dtype, Q, N_BIG, D, k)
-                timings[(dtype, Q, k)] = (kms, pms, lms, bms, by)
+                timings[(dtype, Q, k)] = (kms, pms, lms, bms, by, path[0])
                 lib = f"{lms:.4f}" if lms is not None else "n/a"
                 print(f"[kernel] {dtype} Q={Q:3d} N={N_BIG} D={D} k={k}: "
-                      f"kernel_ms={kms:.4f} (per call {kcall:.4f}) "
-                      f"plain_ms={pms:.4f} library_ms={lib} "
-                      f"bound_ms={bms:.4f} ({by})")
+                      f"kernel_ms={kms:.4f} (per call {kcall:.4f}, "
+                      f"{path[0]} path, {path[1]} blocks) plain_ms={pms:.4f} "
+                      f"library_ms={lib} bound_ms={bms:.4f} ({by})")
         del shards
     return errs, timings
 
@@ -606,7 +721,40 @@ def plain_labels(torch, gm, gallery, emb, dtype):
     return labels, best[0].cpu()
 
 
+class QHistogram:
+    """Wraps the gallery-match wrapper's CUDA path to count its calls by
+    query count Q and by the path they took."""
+
+    def __init__(self, gm):
+        self.gm, self.by_q, self.paths = gm, {}, {}
+
+    def __enter__(self):
+        orig = self.orig = self.gm._match_cuda
+
+        def match_cuda(q, *a, **kw):
+            out = orig(q, *a, **kw)
+            Q, path = q.shape[0], self.gm.last_plan[0]
+            self.by_q[Q] = self.by_q.get(Q, 0) + 1
+            self.paths[path] = self.paths.get(path, 0) + 1
+            return out
+
+        self.gm._match_cuda = match_cuda
+        return self
+
+    def __exit__(self, *exc):
+        self.gm._match_cuda = self.orig
+
+
 def phase_main(torch, gm, serve):
+    with QHistogram(gm) as hist:
+        launches = run_main(torch, gm, serve)
+    print(f"[main] gallery-match calls by Q: "
+          + ", ".join(f"Q={q}: {n}" for q, n in sorted(hist.by_q.items()))
+          + f"; by path: {hist.paths} (small-Q path for Q <= {gm.SMALL_Q})")
+    return launches
+
+
+def run_main(torch, gm, serve):
     launches = {}
     for dtype in DTYPES:
         t0 = time.perf_counter()
@@ -1386,7 +1534,7 @@ def main() -> int:
 
     kernels = []
     for dtype in DTYPES:
-        kms, pms, lms, bms, by = timings[(dtype, 1, 1)]
+        kms, pms, lms, bms, by, path = timings[(dtype, 1, 1)]
         kernels.append({
             "name": f"gallery_match[{dtype}]", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/gallery_match.cu",
@@ -1394,7 +1542,8 @@ def main() -> int:
             "launches": launches[dtype] + ann_launches[dtype][0],
             "max_abs_err": errs[dtype],
             "ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
-            "library_ms": lms, "shape": f"Q=1 N={N_BIG} D=128 k=1"})
+            "library_ms": lms, "path": path,
+            "shape": f"Q=1 N={N_BIG} D=128 k=1"})
     for dtype in DTYPES:
         kms, pms, bms, by = r_timings[dtype]
         kernels.append({

@@ -1,4 +1,4 @@
-// Blocked cosine top-k gallery matching for Hopper (sm_90a).
+// Cosine top-k gallery matching for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `_match_kernel` in src/repro/kernels/gallery_match.py
 // (launched by `_launch` through `pl.pallas_call`): scores Q query templates
@@ -16,31 +16,54 @@
 //     also pads the k > N sentinels.
 //
 // What bounds it on an H100: at the query counts the serving path sends
-// (a micro-batch of a few queries) it is memory-bound.  It has to read the
-// N*D*itemsize bytes of gallery once per query tile, and does 2*BQ FLOPs per
-// gallery element it reads.  Past about 40 fp32 queries per tile it turns
-// into a bound on the fp32 FMA rate instead.  The design is simple: the
-// gallery is split across blocks so every SM streams its own slice, each
-// block reads its slice once for up to 32 queries with wide loads that
-// overlap the scoring, and the (Q, N) score matrix never reaches device
-// memory.  TMA, wgmma and a fused single pass are left to later work.
+// (one to a few queries against a 262,144-row shard) it has to read the
+// N*D*itemsize bytes of gallery once and does 2*Q FLOPs per value it reads,
+// so it is bound by the memory rate (40 / 20 / 10 us for fp32 / bf16 / int8
+// at that shard).  Past about 40 fp32 queries per pass it turns into a bound
+// on the fp32 FMA rate instead.  Two paths, chosen by the wrapper
+// (`gallery_match.plan`):
 //
-// Design:
-//   pass 1, `match_partial_kernel`: grid (Q tiles of 32, S splits of N).  A
-//     block stages its 32 queries in shared memory (fp32, normalized if asked)
-//     and walks its contiguous slice of gallery rows in tiles of 64 rows,
-//     converted to fp32 in shared memory.  Where a row is at most 512 bytes
-//     (D = 128 in every storage type), a warp loads whole rows with one
-//     16-byte load a lane and fetches the next tile into registers while
-//     the block scores this one.  Warp w owns queries 4w..4w+3 and
-//     lane l scores rows l and l+32 of the tile for them, so a warp's scores
-//     stay in its registers.  Each warp keeps, per query, a sorted top-k list
-//     spread over its lanes (entries l and l+32 in lane l); a score enters
-//     only if it beats the k-th entry, found with one ballot, and is inserted
-//     with a warp-wide shift.  The block writes its lists as (Q, S, k)
-//     partials.
-//   pass 2, `merge_kernel`: one warp per query merges the S*k partials with the
-//     same list into the (Q, k) result.
+// small-Q path (Q <= kSmallQ, Q * k <= 32, D = 128, 16-byte aligned rows:
+//   above that Q * k the per-warp lists below take more insertions than the
+//   path saves), one launch of
+//   `match_small_kernel`: a persistent grid (as many 8-warp blocks as fit on
+//   the SMs) whose warps all score.  A warp walks groups of rows with a grid
+//   stride.  A row is read by 8 lanes, each with 16-byte loads of every 8th
+//   chunk (4 chunks a lane in fp32, 2 in bf16, 1 in int8), and a group is 8
+//   such loads a lane: 8 / 16 / 32 rows, all loads in flight together.  The
+//   next group's loads are issued before this group is scored (the first
+//   group's before the query's), except in int8 above 4 queries, where the
+//   second set of registers would cost occupancy.  Each lane holds its 16
+//   values of every query in registers as fp32 (normalized by each warp
+//   once), widens the gallery in registers (bf16 by a 16-bit shift, int8 by
+//   placing each byte in the mantissa of 2^23 and subtracting 2^23 + 128,
+//   both exact, no I2F), and keeps one partial dot per row of the group.  A
+//   transposing reduction over the row's 8 lanes (xor shuffles, each level
+//   halving the values a lane holds) leaves one lane of each row with its
+//   dot; those lanes filter it into the warp's top-k list with one ballot,
+//   and the survivors are offered best first.  Nothing is staged in shared
+//   memory and there is no barrier in the row loop.  At the end each block
+//   merges its warps' lists through shared memory into one (Q, S, k)
+//   partial and counts its arrival; the last block to arrive merges the S
+//   partials into the (Q, k) result and resets the count.  Every row's dot
+//   is summed in the same order (the reduction pairs lanes j and j^4, then
+//   j^2, then j^1, whatever the row's place in its group), so equal rows
+//   score equal, and the lists are ordered by (score, index): the result
+//   depends neither on block order nor on the grid size.
+//
+// tiled path (every other call), `match_partial_kernel` + `merge_kernel`:
+//   grid (Q tiles of 32, S splits of N).  A block stages its 32 queries in
+//   shared memory (fp32, normalized if asked) and walks its contiguous slice
+//   of gallery rows in tiles of 64 rows, converted to fp32 in shared memory.
+//   Where a row is at most 512 bytes (D = 128 in every storage type), a warp
+//   loads whole rows with one 16-byte load a lane and fetches the next tile
+//   into registers while the block scores this one.  Warp w owns queries
+//   4w..4w+3 and lane l scores rows l and l+32 of the tile for them, so a
+//   warp's scores stay in its registers.  Each warp keeps, per query, a
+//   sorted top-k list spread over its lanes (entries l and l+32 in lane l); a
+//   score enters only if it beats the k-th entry, found with one ballot, and
+//   is inserted with a warp-wide shift.  The block writes its lists as (Q, S,
+//   k) partials, and one warp per query merges them into the (Q, k) result.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -231,6 +254,278 @@ int launch(const void* q, const void* g, const float* scale, int Q, int N,
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// The small-Q path
+// ---------------------------------------------------------------------------
+
+constexpr int kSmallQ = 8;        // the most queries the path takes (Q_S)
+constexpr int kSmallD = 128;      // the row width it takes
+constexpr int kSW = 8;            // warps a block
+constexpr int kLPR = 8;           // lanes reading one row
+constexpr int kStepRows = 32 / kLPR;   // rows a warp reads in one step
+constexpr int kLoads = 8;         // 16-byte loads a lane in flight per group
+static_assert(kSmallQ <= kSW, "a block merges one query per warp");
+
+// The lane layout for a 128-wide row of TG values.
+template <typename TG>
+struct Small {
+  static constexpr int kEPC = 16 / (int)sizeof(TG);      // values a chunk
+  static constexpr int kRowChunks = kSmallD / kEPC;      // 32 / 16 / 8
+  static constexpr int kC = kRowChunks / kLPR;           // chunks a lane a row
+  static constexpr int kV = kLoads / kC;                 // steps a group
+  static constexpr int kRows = kV * kStepRows;           // rows a group
+  static constexpr int kQE = kC * kEPC;                  // query values a lane
+  static constexpr int kTLevels = kV == 8 ? 3 : kV == 4 ? 2 : kV == 2 ? 1 : 0;
+};
+
+// Widen one 16-byte chunk to fp32 in registers, exactly.
+__device__ __forceinline__ void widen(const uint4& v, float (&x)[4]) {
+  x[0] = __uint_as_float(v.x); x[1] = __uint_as_float(v.y);
+  x[2] = __uint_as_float(v.z); x[3] = __uint_as_float(v.w);
+}
+__device__ __forceinline__ void widen(const uint4& v, float (&x)[8]) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {            // bf16 is the top half of an fp32
+    x[2 * i] = __uint_as_float(w[i] << 16);
+    x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void widen(const uint4& v, float (&x)[16]) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    // b ^ 0x80 is b + 128 as an unsigned byte; as the low mantissa byte of
+    // 2^23 (0x4B000000) it is the float 2^23 + b + 128
+    const uint32_t u = w[i] ^ 0x80808080u;
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      x[4 * i + b] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + b))
+                     - 8388736.0f;
+  }
+}
+
+// Sum each of the V partial dots a lane holds over the 8 lanes of its row
+// (lane bits 0-2): each transposing level sends half of the values to the
+// partner lane and keeps the other half, then the remaining levels are a
+// butterfly.  Afterwards value s of the group lives in lanes whose bits
+// 2, 1, 0 read s (top bits first), replicated over the low 3 - log2(V) bits.
+template <int V>
+__device__ __forceinline__ float row_sums(float (&a)[V], int lane) {
+#pragma unroll
+  for (int lvl = 0; lvl < 3; ++lvl) {
+    const int o = (kLPR / 2) >> lvl;
+    const int h = V >> (lvl + 1);
+    if (h >= 1) {
+      const bool hi = lane & o;
+#pragma unroll
+      for (int i = 0; i < h; ++i) {
+        const float keep = hi ? a[i + h] : a[i];
+        const float send = hi ? a[i] : a[i + h];
+        a[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+      }
+    } else {
+      a[0] += __shfl_xor_sync(0xffffffffu, a[0], o);
+    }
+  }
+  return a[0];
+}
+
+template <typename TQ, typename TG, int NQ>
+__global__ void __launch_bounds__(kSW * 32, NQ <= 2 ? 2 : 1)
+match_small_kernel(const TQ* __restrict__ q, const TG* __restrict__ g,
+                   const float* __restrict__ scale, int N, int k,
+                   int fuse_norm, float* __restrict__ part_s,
+                   int* __restrict__ part_i, unsigned* __restrict__ arrivals,
+                   float* __restrict__ out_s, int* __restrict__ out_i) {
+  using L = Small<TG>;
+  // load the next group while scoring this one, except where the second
+  // set of registers would cost int8 its occupancy (measured slower, and
+  // spilling at 8 queries)
+  constexpr bool kPrefetch = sizeof(TG) > 1 || NQ <= 4;
+  extern __shared__ float smem[];      // (NQ, kSW, k) scores, then indices
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int j = lane % kLPR;            // which 8th of the row's chunks
+  const int p = lane / kLPR;            // which row of a step
+
+  // the group row whose dot this lane ends with, and whether it is the one
+  // lane of its replicas that offers it
+  const int own = ((j >> (3 - L::kTLevels)) * kStepRows) + p;
+  const bool owner = (j & ((1 << (3 - L::kTLevels)) - 1)) == 0;
+  const uint4* g4 = reinterpret_cast<const uint4*>(g);
+  const int groups = (N + L::kRows - 1) / L::kRows;
+
+  // a group's loads (and its owner rows' int8 scales) into registers
+  auto load = [&](int grp, uint4 (&v)[L::kV][L::kC], float& sc) {
+    const int base = grp * L::kRows;
+#pragma unroll
+    for (int s = 0; s < L::kV; ++s) {
+      const int row = base + s * kStepRows + p;
+#pragma unroll
+      for (int c = 0; c < L::kC; ++c)
+        v[s][c] = row < N
+            ? __ldg(g4 + (size_t)row * L::kRowChunks + j + kLPR * c)
+            : make_uint4(0u, 0u, 0u, 0u);
+    }
+    if constexpr (sizeof(TG) == 1)
+      sc = base + own < N ? __ldg(scale + base + own) : 0.0f;
+  };
+  const int first = blockIdx.x * kSW + warp;
+  const int stride = gridDim.x * kSW;
+  uint4 nv[L::kV][L::kC];
+  float nsc = 1.0f;
+  // with the prefetch, the first group's loads fly during the query's
+  if (kPrefetch && first < groups) load(first, nv, nsc);
+
+  // this lane's query values: chunks j, j + 8, ... of each query, in fp32
+  float qr[NQ][L::kQE];
+#pragma unroll
+  for (int n = 0; n < NQ; ++n) {
+#pragma unroll
+    for (int c = 0; c < L::kC; ++c)
+#pragma unroll
+      for (int e = 0; e < L::kEPC; ++e)
+        qr[n][c * L::kEPC + e] =
+            to_f32(q[n * kSmallD + (j + kLPR * c) * L::kEPC + e]);
+    if (fuse_norm) {                    // the same sum in every lane
+      float ss = 0.0f;
+#pragma unroll
+      for (int e = 0; e < L::kQE; ++e) ss = fmaf(qr[n][e], qr[n][e], ss);
+#pragma unroll
+      for (int o = 1; o < kLPR; o <<= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+      const float inv = 1.0f / sqrtf(fmaxf(ss, 1e-18f));
+#pragma unroll
+      for (int e = 0; e < L::kQE; ++e) qr[n][e] *= inv;
+    }
+  }
+
+  WarpTopK top[NQ];
+#pragma unroll
+  for (int n = 0; n < NQ; ++n) top[n].init();
+  for (int grp = first; grp < groups; grp += stride) {
+    if (!kPrefetch) load(grp, nv, nsc);
+    uint4 v[L::kV][L::kC];
+#pragma unroll
+    for (int s = 0; s < L::kV; ++s)
+#pragma unroll
+      for (int c = 0; c < L::kC; ++c) v[s][c] = nv[s][c];
+    const float sc = nsc;
+    if (kPrefetch && grp + stride < groups) load(grp + stride, nv, nsc);
+    const int row = grp * L::kRows + own;
+
+    float acc[NQ][L::kV];
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int s = 0; s < L::kV; ++s) acc[n][s] = 0.0f;
+#pragma unroll
+    for (int s = 0; s < L::kV; ++s)
+#pragma unroll
+      for (int c = 0; c < L::kC; ++c) {
+        float x[L::kEPC];
+        widen(v[s][c], x);
+#pragma unroll
+        for (int e = 0; e < L::kEPC; ++e)
+#pragma unroll
+          for (int n = 0; n < NQ; ++n)
+            acc[n][s] = fmaf(qr[n][c * L::kEPC + e], x[e], acc[n][s]);
+      }
+#pragma unroll
+    for (int n = 0; n < NQ; ++n) {
+      float sn = row_sums<L::kV>(acc[n], lane);
+      if constexpr (sizeof(TG) == 1) sn *= sc;   // int8: scale after the dot
+      float ts; int ti;
+      top[n].kth(k, ts, ti);
+      top[n].offer_all(__ballot_sync(0xffffffffu, owner && row < N &&
+                                                  better(sn, row, ts, ti)),
+                       sn, row, k);
+    }
+  }
+
+  // the block's warps' lists -> one (NQ, k) partial of this block
+  float* bs = smem;
+  int* bi = reinterpret_cast<int*>(smem + NQ * kSW * k);
+#pragma unroll
+  for (int n = 0; n < NQ; ++n)
+    top[n].store(bs + (n * kSW + warp) * k, bi + (n * kSW + warp) * k, k);
+  __syncthreads();
+  const int S = gridDim.x;
+  if (warp < NQ) {
+    WarpTopK t;
+    t.init();
+    merge_partials<true>(bs + warp * kSW * k, bi + warp * kSW * k, kSW * k,
+                         k, t);
+    const size_t o = ((size_t)warp * S + blockIdx.x) * k;
+    t.store(part_s + o, part_i + o, k);
+  }
+
+  // the last block to arrive merges the S partials of each query: kSW / NQ
+  // warps a query, each over a share of them, then one of them over their
+  // lists; it leaves the arrival count at 0 for the next launch
+  __shared__ bool last;
+  __threadfence();                      // this block's partial, then arrive
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(arrivals, 1u) == (unsigned)S - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const int wpq = kSW / NQ;
+  const int n = warp / wpq, w = warp % wpq;
+  if (n < NQ) {
+    const int total = S * k;
+    const int lo = (int)((long long)total * w / wpq);
+    const int hi = (int)((long long)total * (w + 1) / wpq);
+    WarpTopK t;
+    t.init();
+    merge_partials<true, 4, true>(part_s + (size_t)n * total + lo,
+                                  part_i + (size_t)n * total + lo, hi - lo, k,
+                                  t);
+    t.store(bs + warp * k, bi + warp * k, k);
+  }
+  __syncthreads();
+  if (n < NQ && w == 0) {
+    WarpTopK t;
+    t.init();
+    merge_partials<true>(bs + warp * k, bi + warp * k, wpq * k, k, t);
+    t.store(out_s + (size_t)n * k, out_i + (size_t)n * k, k);
+  }
+  if (threadIdx.x == 0) *arrivals = 0u;
+}
+
+// Dispatch Q in [1, kSmallQ] to its instantiation.
+template <typename TQ, typename TG, int NQ = 1>
+int launch_small(int Q, const void* q, const void* g, const float* scale,
+                 int N, int k, int fuse_norm, int splits, float* part_s,
+                 int* part_i, unsigned* arrivals, float* out_s, int* out_i,
+                 cudaStream_t stream) {
+  if constexpr (NQ < kSmallQ) {
+    if (Q > NQ)
+      return launch_small<TQ, TG, NQ + 1>(Q, q, g, scale, N, k, fuse_norm,
+                                          splits, part_s, part_i, arrivals,
+                                          out_s, out_i, stream);
+  }
+  if (Q != NQ) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)NQ * kSW * k * (sizeof(float) + sizeof(int));
+  match_small_kernel<TQ, TG, NQ><<<splits, kSW * 32, smem, stream>>>(
+      static_cast<const TQ*>(q), static_cast<const TG*>(g), scale, N, k,
+      fuse_norm, part_s, part_i, arrivals, out_s, out_i);
+  return (int)cudaGetLastError();
+}
+
+// Blocks of the small-Q kernel for (TQ, TG, Q) that fit on one SM at once.
+template <typename TQ, typename TG, int NQ = 1>
+int small_blocks_per_sm(int Q, int k, int* blocks) {
+  if constexpr (NQ < kSmallQ) {
+    if (Q > NQ) return small_blocks_per_sm<TQ, TG, NQ + 1>(Q, k, blocks);
+  }
+  if (Q != NQ) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)NQ * kSW * k * (sizeof(float) + sizeof(int));
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, match_small_kernel<TQ, TG, NQ>, kSW * 32, smem);
+}
+
 }  // namespace
 
 extern "C" {
@@ -266,6 +561,59 @@ int gm_match(int dtype, const void* q, const void* g, const void* scale,
                                    st);
     default:
       return (int)cudaErrorInvalidValue;
+  }
+}
+
+int gm_small_q() { return kSmallQ; }
+int gm_small_d() { return kSmallD; }
+
+// The small-Q path: Q <= gm_small_q(), D = gm_small_d(), the gallery
+// 16-byte aligned; the arguments are gm_match's, `splits` the number of
+// blocks (see gm_small_blocks_per_sm), and `arrivals` one unsigned int that
+// is 0 before the launch and that the launch leaves at 0 (the wrapper keeps
+// one for each device and stream, and zeroes it again after an error).
+// One launch.  Returns a cudaError_t code.
+int gm_match_small(int dtype, const void* q, const void* g, const void* scale,
+                   int Q, int N, int D, int k, int fuse_norm, int splits,
+                   void* part_s, void* part_i, void* arrivals, void* out_s,
+                   void* out_i, void* stream) {
+  if (k < 1 || k > kMaxK || Q < 1 || Q > kSmallQ || N < 1 || D != kSmallD ||
+      splits < 1 || reinterpret_cast<uintptr_t>(g) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* ps = static_cast<float*>(part_s);
+  int* pi = static_cast<int*>(part_i);
+  unsigned* arr = static_cast<unsigned*>(arrivals);
+  float* os = static_cast<float*>(out_s);
+  int* oi = static_cast<int*>(out_i);
+  switch (dtype) {
+    case 0:
+      return launch_small<float, float>(Q, q, g, nullptr, N, k, fuse_norm,
+                                        splits, ps, pi, arr, os, oi, st);
+    case 1:
+      return launch_small<__nv_bfloat16, __nv_bfloat16>(
+          Q, q, g, nullptr, N, k, fuse_norm, splits, ps, pi, arr, os, oi, st);
+    case 2:
+      return launch_small<float, int8_t>(Q, q, g,
+                                         static_cast<const float*>(scale), N,
+                                         k, fuse_norm, splits, ps, pi, arr, os,
+                                         oi, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// How many blocks of the small-Q kernel for (dtype, Q, k) fit on one SM of
+// the current device, into *blocks.  Returns a cudaError_t code.
+int gm_small_blocks_per_sm(int dtype, int Q, int k, int* blocks) {
+  if (k < 1 || k > kMaxK || Q < 1 || Q > kSmallQ)
+    return (int)cudaErrorInvalidValue;
+  switch (dtype) {
+    case 0: return small_blocks_per_sm<float, float>(Q, k, blocks);
+    case 1:
+      return small_blocks_per_sm<__nv_bfloat16, __nv_bfloat16>(Q, k, blocks);
+    case 2: return small_blocks_per_sm<float, int8_t>(Q, k, blocks);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 

@@ -68,6 +68,42 @@ struct WarpTopK {
     } else if (e1 == pos) { s1 = cs; i1 = ci; }
   }
 
+  // Offer the candidates (cs, ci) of the lanes in the uniform mask m, best
+  // first, dropping after each insertion those that no longer beat entry
+  // k-1.  The list ends as if each had been offered in turn, but where many
+  // candidates pass the filter at small k (a list filling up), only a few
+  // insertions (each a chain of dependent shuffles) are made.
+  __device__ void offer_all(unsigned m, float cs, int ci, int k) {
+    const int lane = threadIdx.x & 31;
+    while (m) {
+      const bool in = (m >> lane) & 1u;
+      int bl = __ffs(m) - 1;
+      float bs;
+      int bi;
+      if (m & (m - 1)) {                 // the best of several: an argmax
+        bs = in ? cs : kNeg;             // over (score, key, lane)
+        bi = in ? ci : -1;
+        bl = in ? lane : 32;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+          const float os = __shfl_xor_sync(0xffffffffu, bs, o);
+          const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+          const int ol = __shfl_xor_sync(0xffffffffu, bl, o);
+          if (better(os, oi, bs, bi) || (!better(bs, bi, os, oi) && ol < bl)) {
+            bs = os; bi = oi; bl = ol;
+          }
+        }
+      } else {
+        bs = __shfl_sync(0xffffffffu, cs, bl);
+        bi = __shfl_sync(0xffffffffu, ci, bl);
+      }
+      offer(bs, bi, k);
+      float ts; int ti;
+      kth(k, ts, ti);
+      m = __ballot_sync(0xffffffffu, in && lane != bl && better(cs, ci, ts, ti));
+    }
+  }
+
   // Write entries 0..k-1 (empty entries as the (NEG, -1) sentinel).
   __device__ void store(float* out_s, int* out_i, int k) const {
     const int lane = threadIdx.x & 31;
@@ -78,21 +114,40 @@ struct WarpTopK {
 
 // Merge n partial entries (ps[c], pi[c]) into `top`, one warp, 32 at a time:
 // a candidate enters only if it beats the k-th entry, found with one ballot.
+// The gallery-match kernel's small-Q path asks for more: BestFirst offers
+// the ones that pass with `offer_all`, U loads a lane are in flight at once,
+// and L2 loads skip the L1 cache (partials that other blocks of the same
+// launch wrote).
+template <bool BestFirst = false, int U = 1, bool L2 = false>
 __device__ void merge_partials(const float* __restrict__ ps,
                                const int* __restrict__ pi, int n, int k,
                                WarpTopK& top) {
   const int lane = threadIdx.x & 31;
-  for (int base = 0; base < n; base += 32) {
-    const int c = base + lane;
-    const float s = c < n ? ps[c] : kNeg;
-    const int i = c < n ? pi[c] : -1;
-    float ts; int ti;
-    top.kth(k, ts, ti);
-    unsigned m = __ballot_sync(0xffffffffu, i >= 0 && better(s, i, ts, ti));
-    while (m) {
-      const int b = __ffs(m) - 1;
-      m &= m - 1;
-      top.offer(__shfl_sync(0xffffffffu, s, b), __shfl_sync(0xffffffffu, i, b), k);
+  for (int base = 0; base < n; base += 32 * U) {
+    float s[U];
+    int i[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int c = base + 32 * u + lane;
+      s[u] = c < n ? (L2 ? __ldcg(ps + c) : ps[c]) : kNeg;
+      i[u] = c < n ? (L2 ? __ldcg(pi + c) : pi[c]) : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float ts; int ti;
+      top.kth(k, ts, ti);
+      unsigned m = __ballot_sync(0xffffffffu,
+                                 i[u] >= 0 && better(s[u], i[u], ts, ti));
+      if constexpr (BestFirst) {
+        top.offer_all(m, s[u], i[u], k);
+      } else {
+        while (m) {
+          const int b = __ffs(m) - 1;
+          m &= m - 1;
+          top.offer(__shfl_sync(0xffffffffu, s[u], b),
+                    __shfl_sync(0xffffffffu, i[u], b), k);
+        }
+      }
     }
   }
 }

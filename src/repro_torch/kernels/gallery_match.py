@@ -10,6 +10,8 @@ CUDA tensor they launch the hand-written kernel in
 into ``build/kernels/``, bound through ``ctypes``); on a CPU tensor they run
 ``gallery_match_plain``, the same function in plain PyTorch.  Any other
 device raises: there is no fallback from the kernel to the plain version.
+The kernel has two paths, a small-Q one for the serving path's one to a
+few queries at small k and a tiled one for the rest; ``plan`` chooses.
 
 Contract (the reference kernel's):
 
@@ -35,11 +37,33 @@ from repro_torch.kernels import _build
 NEG = -3.0e38
 MAX_K = 64              # the kernel keeps two list entries per lane
 MAX_D = 512             # query tile + gallery tile fit the 227 KB of smem
+SMALL_Q = 8             # the small-Q path's most queries (kSmallQ in the .cu)
+SMALL_D = 128           # and the one row width it takes
+SMALL_QK = 32           # its most Q * k: above, its per-warp lists and last
+                        # merge cost more than it saves (measured, PERF.md)
+_SMALL_WARPS = 8        # warps a block of the small-Q path
+_GROUP_BYTES = 4096     # gallery bytes a warp reads per group (32 x 8 x 16)
+_TILE_ROWS = 64         # gallery rows a tile of the tiled path
 
-# launches of the CUDA kernel (both passes count as one)
+# launches of the CUDA kernel (the tiled path's two passes count as one),
+# and the path and split count of the last launch
 launches = 0
+last_plan = None
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_vp, _ci = ctypes.c_void_p, ctypes.c_int
+# the C interface of csrc/gallery_match.cu: (argument types, result type)
+_SIGNATURES = {
+    "gm_match": ([_ci, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci,
+                  _vp, _vp, _vp, _vp, _vp], _ci),
+    "gm_match_small": ([_ci, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci,
+                        _vp, _vp, _vp, _vp, _vp, _vp], _ci),
+    "gm_small_blocks_per_sm": ([_ci, _ci, _ci, ctypes.POINTER(_ci)], _ci),
+    "gm_error_string": ([_ci], ctypes.c_char_p),
+    "gm_max_k": ([], _ci),
+    "gm_small_q": ([], _ci),
+    "gm_small_d": ([], _ci),
+}
 _lib = None
 
 
@@ -54,28 +78,64 @@ def _library():
     global _lib
     if _lib is None:
         lib = _build.library("gallery_match")
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.gm_match.argtypes = [ci, vp, vp, vp, ci, ci, ci, ci, ci, ci,
-                                 vp, vp, vp, vp, vp]
-        lib.gm_match.restype = ci
-        lib.gm_error_string.argtypes = [ci]
-        lib.gm_error_string.restype = ctypes.c_char_p
-        lib.gm_max_k.argtypes = []
-        lib.gm_max_k.restype = ci
-        assert lib.gm_max_k() == MAX_K
+        for name, (args, res) in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = args, res
+        assert (lib.gm_max_k(), lib.gm_small_q(), lib.gm_small_d()) == \
+            (MAX_K, SMALL_Q, SMALL_D)
         _lib = lib
     return _lib
 
 
-def _splits(dev, n_qtiles: int, N: int) -> int:
-    """Gallery splits per query tile: enough blocks for a few waves over
-    the card's SMs, each split at least one 64-row tile."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return max(1, min(-(-N // 64), -(-4 * sms // n_qtiles)))
+def plan(Q: int, k: int, N: int, D: int, itemsize: int, aligned: bool,
+         sms: int, small_blocks_per_sm: int):
+    """Which path of the kernel a call takes, and its split count.
+
+    ``("small", S)`` for Q <= SMALL_Q queries of width SMALL_D with
+    Q * k <= SMALL_QK against a 16-byte aligned gallery: a persistent grid
+    of S blocks, as many as fit on the ``sms`` SMs at
+    ``small_blocks_per_sm`` each, but no more than the gallery has tiles (a
+    block's warps each take one group of ``_GROUP_BYTES``).  ``("tiled",
+    S)`` otherwise: S splits of the gallery per 32-query tile, enough
+    blocks for a few waves over the SMs, each split at least one 64-row
+    tile."""
+    if Q <= SMALL_Q and Q * k <= SMALL_QK and D == SMALL_D and aligned:
+        tile = _SMALL_WARPS * _GROUP_BYTES // (D * itemsize)
+        return "small", max(1, min(small_blocks_per_sm * sms, -(-N // tile)))
+    n_qtiles = -(-Q // 32)
+    return "tiled", max(1, min(-(-N // _TILE_ROWS), -(-4 * sms // n_qtiles)))
+
+
+_blocks_per_sm = {}
+_arrivals = {}
+
+
+def _arrival_count(dev, stream: int) -> torch.Tensor:
+    """The small-Q path's arrival count for ``dev`` and ``stream``: zeroed
+    once here, left at 0 by every launch that completes."""
+    key = (dev.index, stream)
+    if key not in _arrivals:
+        _arrivals[key] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return _arrivals[key]
+
+
+def _small_blocks_per_sm(lib, code: int, Q: int, k: int, dev) -> int:
+    """Blocks of the small-Q kernel that fit on one SM of ``dev`` (the
+    CUDA occupancy calculator, once per kernel instance and device)."""
+    key = (code, Q, k, dev.index)
+    if key not in _blocks_per_sm:
+        n = ctypes.c_int(0)
+        err = lib.gm_small_blocks_per_sm(code, Q, k, ctypes.byref(n))
+        if err != 0 or n.value < 1:
+            raise RuntimeError("gallery_match: no block of the small-Q "
+                               "kernel fits an SM: "
+                               + lib.gm_error_string(err).decode())
+        _blocks_per_sm[key] = n.value
+    return _blocks_per_sm[key]
 
 
 def _match_cuda(q, g, g_scale, k_eff: int, fuse_norm: bool):
-    global launches
+    global launches, last_plan
     Q, D = q.shape
     N = g.shape[0]
     if g.dtype not in _DTYPE_CODE:
@@ -96,22 +156,36 @@ def _match_cuda(q, g, g_scale, k_eff: int, fuse_norm: bool):
                          f"{MAX_K}")
     lib = _library()
     dev = q.device
-    S = _splits(dev, -(-Q // 32), N)
-    part_s = torch.empty((Q, S, k_eff), dtype=torch.float32, device=dev)
-    part_i = torch.empty((Q, S, k_eff), dtype=torch.int32, device=dev)
-    out_s = torch.empty((Q, k_eff), dtype=torch.float32, device=dev)
-    out_i = torch.empty((Q, k_eff), dtype=torch.int32, device=dev)
+    code = _DTYPE_CODE[g.dtype]
     with torch.cuda.device(dev):
+        bps = _small_blocks_per_sm(lib, code, Q, k_eff, dev) \
+            if Q <= SMALL_Q else 0
+        path, S = plan(Q, k_eff, N, D, g.element_size(),
+                       g.data_ptr() % 16 == 0,
+                       torch.cuda.get_device_properties(dev)
+                       .multi_processor_count, bps)
+        part_s = torch.empty((Q, S, k_eff), dtype=torch.float32, device=dev)
+        part_i = torch.empty((Q, S, k_eff), dtype=torch.int32, device=dev)
+        out_s = torch.empty((Q, k_eff), dtype=torch.float32, device=dev)
+        out_i = torch.empty((Q, k_eff), dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.gm_match(
-            _DTYPE_CODE[g.dtype], q.data_ptr(), g.data_ptr(),
-            g_scale.data_ptr() if g_scale is not None else None,
-            Q, N, D, k_eff, int(fuse_norm), S, part_s.data_ptr(),
-            part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), stream)
+        args = [code, q.data_ptr(), g.data_ptr(),
+                g_scale.data_ptr() if g_scale is not None else None,
+                Q, N, D, k_eff, int(fuse_norm), S, part_s.data_ptr(),
+                part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), stream]
+        if path == "small":
+            count = _arrival_count(dev, stream)
+            args.insert(12, count.data_ptr())
+            err = lib.gm_match_small(*args)
+            if err != 0:
+                count.zero_()
+        else:
+            err = lib.gm_match(*args)
     if err != 0:
         raise RuntimeError("gallery_match: kernel launch failed: "
                            + lib.gm_error_string(err).decode())
     launches += 1
+    last_plan = (path, S)
     return out_s, out_i
 
 

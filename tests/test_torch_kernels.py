@@ -20,6 +20,7 @@ reference score lies within the tolerance of the reference's pick.
 import ast
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -199,6 +200,102 @@ def test_plain_vs_pallas_kernel(pallas_reference, dtype):
     _assert_topk(s.numpy(), i.numpy(), sr, ir, full, TOL[dtype])
 
 
+@pytest.mark.parametrize("sms", [132, 3])
+@pytest.mark.parametrize("itemsize", [4, 2, 1])
+def test_plan_chooses_path_and_splits(sms, itemsize):
+    """The small-Q path for Q <= SMALL_Q and Q * k <= SMALL_QK at D =
+    SMALL_D on an aligned gallery, the tiled path otherwise; at least one
+    split, and never more splits than the gallery has tiles (or, on the
+    small-Q path, than fit on the SMs)."""
+    tile_small = gm._SMALL_WARPS * gm._GROUP_BYTES // (gm.SMALL_D * itemsize)
+    for Q in range(1, gm.SMALL_Q + 3):
+        for k in (1, 4, 8, 32, 64):
+            for N in (1, 63, 64, 65, 1000, 1024, 262_144):
+                for bps in (1, 2, 3):
+                    path, S = gm.plan(Q, k, N, gm.SMALL_D, itemsize, True,
+                                      sms, bps)
+                    small = Q <= gm.SMALL_Q and Q * k <= gm.SMALL_QK
+                    assert path == ("small" if small else "tiled")
+                    tiles = -(-N // (tile_small if small else 64))
+                    assert 1 <= S <= tiles, (Q, k, N, bps, S)
+                    if small:
+                        assert S <= bps * sms
+                    # another width, or a misaligned gallery: tiled
+                    for D, aligned in ((36, True), (256, True),
+                                       (gm.SMALL_D, False)):
+                        path, S = gm.plan(Q, k, N, D, itemsize, aligned, sms,
+                                          bps)
+                        assert path == "tiled" and 1 <= S <= -(-N // 64)
+
+
+def _tied_gallery(rng, N, D):
+    """Small-integer rows (exact dots), with row 0 repeated at the edges of
+    the small-Q path's 8/16/32-row groups, of the tiled path's 64-row
+    tiles, and in the last row."""
+    g = rng.integers(-2, 3, size=(N, D)).astype(np.float32)
+    for r in (7, 8, 15, 16, 31, 32, 63, 64, N - 1):
+        if r < N:
+            g[r] = g[0]
+    return g
+
+
+@pytest.mark.parametrize("N", [1, 63, 65])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16", "int8"])
+def test_plain_vs_reference_at_small_q_edges(dtype, N):
+    """Q = 1 .. SMALL_Q + 1 (both paths' query counts) at k = 1, 8 and 64,
+    with exact ties across the rows where the kernel's blocks and groups
+    would split the gallery: scores and indices equal the reference's."""
+    rng = np.random.default_rng(N * 3 + len(dtype))
+    g = _tied_gallery(rng, N, gm.SMALL_D)
+    for Q in range(1, gm.SMALL_Q + 2):
+        q = rng.integers(-2, 3, size=(Q, gm.SMALL_D)).astype(np.float32)
+        q[0] = g[0]                                # the tied rows win
+        for k in (1, 8, 64):
+            if dtype == "int8":
+                g8, scale = g.astype(np.int8), np.ones(N, np.float32)
+                s, i = gm.gallery_match_quant_cuda(_t(q), _t(g8), _t(scale),
+                                                   k=k)
+                sr, ir = R.gallery_match_quant_ref(
+                    jnp.asarray(q), jnp.asarray(g8), jnp.asarray(scale), k=k)
+            else:
+                tdt = torch.float32 if dtype == "fp32" else torch.bfloat16
+                jdt = jnp.float32 if dtype == "fp32" else jnp.bfloat16
+                s, i = gm.gallery_match_cuda(_t(q), _t(g).to(tdt), k=k)
+                sr, ir = R.gallery_match_ref(jnp.asarray(q).astype(jdt),
+                                             jnp.asarray(g).astype(jdt), k=k)
+            np.testing.assert_array_equal(s.numpy(), np.asarray(sr))
+            np.testing.assert_array_equal(i.numpy(), np.asarray(ir))
+
+
+def _c_params(src: str, name: str) -> list:
+    """The parameters of ``name(...) {`` in a C source, as written."""
+    m = re.search(r"\b" + name + r"\(([^)]*)\)\s*\{", src)
+    assert m, name
+    return [p.strip() for p in m.group(1).split(",") if p.strip()]
+
+
+def test_c_interface_matches_the_wrapper():
+    """Each C function of csrc/gallery_match.cu takes as many arguments,
+    of the same kinds, as the ctypes signature the wrapper sets (a
+    mismatch would only show on the card), and the small-Q path's limits
+    in the wrapper are the kernel's."""
+    import ctypes
+    src = (ROOT / "src/repro_torch/kernels/csrc/gallery_match.cu").read_text()
+    kind = {ctypes.c_void_p: "pointer", ctypes.c_int: "int"}
+    for name, (args, _) in gm._SIGNATURES.items():
+        params = _c_params(src, name)
+        assert len(params) == len(args), (name, params)
+        for p, a in zip(params, args):
+            want = "pointer" if "*" in p else "int"
+            assert kind.get(a, "pointer") == want, (name, p, a)
+    assert re.search(r"constexpr int kSmallQ = (\d+);", src).group(1) == \
+        str(gm.SMALL_Q)
+    assert re.search(r"constexpr int kSmallD = (\d+);", src).group(1) == \
+        str(gm.SMALL_D)
+    assert len(gm._SIGNATURES["gm_match"][0]) == 15
+    assert len(gm._SIGNATURES["gm_match_small"][0]) == 16
+
+
 def test_ops_gallery_match_normalizes_both_sides():
     rng = np.random.default_rng(9)
     q = rng.normal(size=(6, 64)).astype(np.float32) * 2
@@ -272,8 +369,8 @@ def _port_modules():
 
 def test_import_guard_no_jax():
     """Every port module imports with ``jax`` made unimportable, and no
-    port source (nor ``chip_smoke.py``) names ``jax`` or ``repro`` in an
-    import."""
+    port source (nor ``chip_smoke.py`` or ``kernel_compare.py``) names
+    ``jax`` or ``repro`` in an import."""
     code = ("import sys, importlib\n"
             "sys.modules['jax'] = None\n"
             f"for m in {_port_modules()!r}:\n"
@@ -286,7 +383,7 @@ def test_import_guard_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     files = list((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "kernel_compare.py"]
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
             names = []
