@@ -9,7 +9,9 @@ Phases, each printing its lines; any failure exits non-zero:
 2. build: compile the four CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one nvcc each for sm_90a, started together) and print each build time;
    count the tensor-core (HGMMA) and TMA-load (UTMALDG) instructions in
-   the flash library's SASS (``cuobjdump``), which must hold both;
+   the flash library's SASS (``cuobjdump``), which must hold both, and the
+   tensor-core instructions (HMMA, HGMMA) in the SSD library's, which must
+   hold some;
 3. gallery-match kernel vs plain: the kernel against its plain PyTorch
    version on the card, for fp32, bf16 and int8 galleries at Q in
    {1, 16, 256}, N in {1000, 262144}, D = 128, k in {1, 5}, plus k > N,
@@ -44,10 +46,18 @@ Phases, each printing its lines; any failure exits non-zero:
    the plain version's and ``F.scaled_dot_product_attention``'s device
    times at the serving shapes beside the bound, with each one's share of
    it;
-6. SSD kernel vs plain: y and the final state on the CPU tests' shapes in
-   fp32 and bf16, and at the serving shape (8, 2048, 80, 64), N = 64,
-   chunk 256, as the model's strided slices; then the kernel's and the
-   plain version's device times there beside the bound;
+6. SSD kernel vs plain: in fp32 and bf16, on the CPU tests' shapes, the
+   kernel's edges (one chunk; a chunk of 100; P = 8 with N = 4; the smoke
+   config, P = N = 16 and L = 32, as strided views; one sequence of one
+   head) and the serving shape (8, 2048, 80, 64), N = 64, chunk 256, as
+   the model's strided slices, each printing the path ``plan()`` took; on
+   the staged path each stage's output (chunk states, chunk totals,
+   passed states) is held against the plain version's, then y and the
+   final state, and a failure names the stage, dtype and shape; the
+   serving shape runs twice, bit-identical, and every output's check must
+   reject a planted 5 % fault there; then the kernel's (split by stage)
+   and the plain version's device times at the serving shape in both
+   dtypes beside the bound on tensor cores and on the FMA units;
 7. the reference check: the biometric stages on the card vs on the CPU;
 8. exact main path: ``run_biometric`` on the card once per match dtype,
    over a 4-shard watchlist of the 10 pipeline subjects plus 1,048,576
@@ -105,6 +115,7 @@ SRC = ROOT / "src"
 TOL = 1e-5              # kernel vs plain, max abs score error (see phase 3)
 HBM_BYTES_S = 3.35e12   # H100 SXM device memory rate
 PEAK_OPS_S = {          # H100 SXM dense peaks for the multiply-adds' type
+    "tf32": 495e12,     # fp32-precise products on the tensor cores (SSD)
     "fp32": 67e12,      # fp32 query x fp32 gallery: CUDA cores, no TF32
     "bf16": 989e12,     # bf16 x bf16 with fp32 accumulation: tensor cores
     "int8": 67e12,      # fp32 query x int8 gallery: an fp32 product
@@ -233,19 +244,26 @@ def compare(torch, gm, dtype, Q, N, k, gen, D=128, misalign=False,
     return err
 
 
-def _kernel_us(prof, n):
-    """Device microseconds a call in a profile of ``n`` calls of one
-    function: each kernel's mean time times its launches a call (its count
-    over ``n``, rounded up: every call launches every kernel the trace
-    holds), so launches the trace lost do not lower the time of a call."""
+def _per_kernel_us(prof, n):
+    """{kernel name: device microseconds a call} in a profile of ``n``
+    calls of one function: each kernel's mean time times its launches a
+    call (its count over ``n``, rounded up: every call launches every
+    kernel the trace holds), so launches the trace lost do not lower the
+    time of a call."""
     from torch.autograd import DeviceType
-    per_call = 0.0
+    out = {}
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
             us = getattr(e, "self_device_time_total", None) or \
                 getattr(e, "self_cuda_time_total", 0.0)
-            per_call += us / e.count * math.ceil(e.count / n)
-    return per_call
+            out[e.key] = out.get(e.key, 0.0) + \
+                us / e.count * math.ceil(e.count / n)
+    return out
+
+
+def _kernel_us(prof, n):
+    """Device microseconds a call, all kernels (``_per_kernel_us``)."""
+    return sum(_per_kernel_us(prof, n).values())
 
 
 def timed(torch, fn, galleries, iters=10):
@@ -316,22 +334,33 @@ def phase_build(modules):
         print(f"[build] {lib.relative_to(ROOT)} in {secs:.1f} s")
 
 
-def flash_sass(FA):
-    """How many tensor-core (HGMMA) and TMA-load (UTMALDG) instructions
-    the built flash library holds, from ``cuobjdump -sass``; its bf16 path
-    must issue both."""
+def sass_counts(mod, ops):
+    """How many of each instruction of ``ops`` the built library of
+    ``mod`` holds, from ``cuobjdump -sass``."""
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass", str(FA.build())], check=True,
+    sass = subprocess.run([tool, "-sass", str(mod.build())], check=True,
                           capture_output=True, text=True).stdout
     counts = {op: sum(op in line for line in sass.splitlines())
-              for op in ("HGMMA", "UTMALDG")}
-    print(f"[sass] {FA.build().relative_to(ROOT)}: "
+              for op in ops}
+    print(f"[sass] {mod.build().relative_to(ROOT)}: "
           + ", ".join(f"{n} {op}" for op, n in counts.items()))
-    if not all(counts.values()):
-        raise AssertionError(f"the flash library's bf16 path issues no "
-                             f"tensor-core or no TMA loads: {counts}")
     return counts
+
+
+def phase_sass(FA, SSD):
+    """The flash library's bf16 path must issue tensor-core (HGMMA) and
+    TMA loads (UTMALDG), the SSD library's staged path tensor-core
+    instructions (HMMA or HGMMA)."""
+    flash = sass_counts(FA, ("HGMMA", "UTMALDG"))
+    if not all(flash.values()):
+        raise AssertionError(f"the flash library's bf16 path issues no "
+                             f"tensor-core or no TMA loads: {flash}")
+    ssd = sass_counts(SSD, ("HMMA", "HGMMA"))
+    if not any(ssd.values()):
+        raise AssertionError(f"the SSD library issues no tensor-core "
+                             f"instructions: {ssd}")
+    return flash, ssd
 
 
 def fault_top_score(s, i):
@@ -997,7 +1026,17 @@ FLASH_SERVE = {"mha": (8, 32, 32, 2048, 2048, 80, 80, True, 0),
 SSD_SHAPES = [(1, 128, 1, 16, 8, 64), (2, 256, 3, 32, 16, 128),
               (1, 512, 2, 64, 32, 256), (2, 64, 4, 8, 8, 64),
               (2, 1024, 2, 16, 8, 256)]
+# the kernel's edges, (shape, as the model's strided views): one chunk; a
+# chunk of 100 (no multiple of 16); P = 8 with N = 4; the smoke config
+# (P = N = 16, L = 32); one sequence of one head
+SSD_EDGES = [((2, 256, 4, 64, 64, 256), False),
+             ((2, 100, 3, 16, 16, 256), False),
+             ((2, 64, 3, 8, 4, 64), False),
+             ((2, 32, 8, 16, 16, 256), True),
+             ((1, 512, 1, 64, 64, 256), False)]
 SSD_SERVE = (8, 2048, 80, 64, 64, 256)
+# the staged path's intermediates, in the order its kernels write them
+SSD_STAGES = ("chunk_state", "chunk_total", "passed_state")
 TORCH_DTYPE = {"fp32": "float32", "bf16": "bfloat16"}
 
 
@@ -1162,40 +1201,126 @@ def ssd_work(shape, dtype):
     return nbytes, ops
 
 
+def ssd_outputs(y, state, stages):
+    """[(name, tensor)] of one SSD call's outputs, the staged path's
+    intermediates first."""
+    out = [] if stages is None else [(k, stages[k]) for k in SSD_STAGES]
+    return out + [("y", y), ("state", state)]
+
+
+def ssd_close(torch, got, want):
+    """An SSD output against the plain version's: finite, the same shape,
+    within the reference tests' allclose bounds."""
+    return got.shape == want.shape and bool(torch.isfinite(got).all()) \
+        and torch.allclose(got, want, atol=SSD_ATOL, rtol=SSD_RTOL)
+
+
+def planted_ssd(t):
+    """``t`` with its later half along dim 1 (positions, chunks or heads)
+    PLANT times too large, in place."""
+    t[:, t.shape[1] // 2:] *= PLANT
+    return t
+
+
+def kernel_split(torch, fn, n=3):
+    """Device ms per call of ``fn()`` by kernel name, without its template
+    arguments (a profiler trace of ``n`` calls)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for key, us in _per_kernel_us(prof, n).items():
+        name = re.sub(r"^void |\(anonymous namespace\)::|[<(].*$", "", key)
+        out[name] = out.get(name, 0.0) + us / 1e3
+    return out
+
+
 def phase_ssd(torch, SSD):
     gen = torch.Generator(device=DEV).manual_seed(77)
-    err, n = 0.0, 0
+    errs, timings, caught, identical = {}, {}, [], 0
+    cases = [(sh, False) for sh in SSD_SHAPES] + SSD_EDGES + \
+        [(SSD_SERVE, True)]
     for dtype in LM_DTYPES:
-        cases = [(sh, False) for sh in SSD_SHAPES] + [(SSD_SERVE, True)]
+        err, paths = 0.0, {}
         for shape, model_layout in cases:
             x, dt, A, Bm, Cm = ssd_inputs(torch, shape, dtype, gen,
                                           model_layout)
-            y, st = SSD.mamba2_ssd_cuda(x, dt, A, Bm, Cm, chunk=shape[5])
+            got = ssd_outputs(*SSD.mamba2_ssd_cuda(x, dt, A, Bm, Cm,
+                                                   chunk=shape[5],
+                                                   stages=True))
             torch.cuda.synchronize()
-            yp, sp = SSD.mamba2_ssd_plain(x, dt, A, Bm, Cm,
-                                          chunk=min(shape[5], shape[1]))
-            for got, want, what in ((y, yp, "y"), (st, sp, "state")):
-                if got.shape != want.shape or \
-                        not bool(torch.isfinite(got).all()) or \
-                        not torch.allclose(got, want, atol=SSD_ATOL,
-                                           rtol=SSD_RTOL):
-                    raise AssertionError(f"ssd {dtype} {shape}: {what} "
-                                         "differs from the plain version's")
-                err = max(err, float((got - want).abs().max()))
-            n += 1
-            del x, dt, Bm, Cm, y, st, yp, sp
-    print(f"[ssd] kernel == plain (y and state) on {n} inputs, max abs "
-          f"error {err:.3g} (atol {SSD_ATOL}, rtol {SSD_RTOL})")
-    args = [ssd_inputs(torch, SSD_SERVE, "bf16", gen, True)]
-    kms, kcall = timed(torch, lambda *a: SSD.mamba2_ssd_cuda(*a), args,
-                       iters=5)
-    pms, _ = timed(torch, lambda *a: SSD.mamba2_ssd_plain(
-        *a, chunk=SSD_SERVE[5]), args, iters=3)
-    bms, by = work_bound("fp32", *ssd_work(SSD_SERVE, "bf16"))
-    print(f"[ssd] bf16 {SSD_SERVE}: kernel_ms={kms:.4f} (per call "
-          f"{kcall:.4f}) plain_ms={pms:.4f} library_ms=n/a "
-          f"bound_ms={bms:.4f} ({by}, fp32 FMA peak)")
-    return err, (kms, pms, bms, by)
+            path = SSD.last_plan
+            paths[path] = paths.get(path, 0) + 1
+            want = dict(ssd_outputs(*SSD.mamba2_ssd_plain(
+                x, dt, A, Bm, Cm, chunk=min(shape[5], shape[1]),
+                stages=True)))
+            if (path == "staged") != (len(got) > 2):
+                raise AssertionError(f"ssd {dtype} {shape}: the {path} path "
+                                     f"returned {len(got) - 2} stages")
+            for name, g in got:
+                if not ssd_close(torch, g, want[name]):
+                    e = float((g - want[name]).abs().max()) \
+                        if g.shape == want[name].shape else math.inf
+                    raise AssertionError(
+                        f"ssd {dtype} {shape} ({path} path): stage {name} "
+                        f"differs from the plain version's (max abs error "
+                        f"{e:.3g}; atol {SSD_ATOL}, rtol {SSD_RTOL})")
+                err = max(err, float((g - want[name]).abs().max()))
+            print(f"[ssd] {dtype} {shape}{' strided' if model_layout else ''}"
+                  f": {path} path, "
+                  + ", ".join(name for name, _ in got) + " == plain")
+            if shape == SSD_SERVE:
+                # a race shows as a difference between two runs
+                again = ssd_outputs(*SSD.mamba2_ssd_cuda(
+                    x, dt, A, Bm, Cm, chunk=shape[5], stages=True))
+                torch.cuda.synchronize()
+                for (name, a), (_, b) in zip(got, again):
+                    if not torch.equal(a, b):
+                        raise AssertionError(f"ssd {dtype} {shape}: two runs "
+                                             f"on the same inputs differ in "
+                                             f"{name}")
+                identical += 1
+                del again
+                # every output's check must catch a 5 % fault
+                for name, g in got:
+                    if ssd_close(torch, planted_ssd(g.clone()), want[name]):
+                        raise AssertionError(f"ssd {dtype} {shape}: a planted "
+                                             f"fault in {name} passes the "
+                                             "check")
+                    caught.append(name)
+            del x, dt, Bm, Cm, got, want
+        errs[dtype] = err
+        print(f"[ssd] {dtype}: kernel == plain on {len(cases)} shapes "
+              f"({', '.join(f'{n} {k}' for k, n in paths.items())}), max abs "
+              f"error {err:.3g} (atol {SSD_ATOL}, rtol {SSD_RTOL})")
+    print(f"[ssd] the serving shape bit-identical over two runs in "
+          f"{identical} dtypes; a planted {PLANT - 1:.0%} fault rejected in "
+          f"{len(caught)} outputs ({', '.join(sorted(set(caught)))})")
+    for dtype in LM_DTYPES:
+        args = [ssd_inputs(torch, SSD_SERVE, dtype, gen, True)]
+        kms, kcall = timed(torch, lambda *a: SSD.mamba2_ssd_cuda(*a), args,
+                           iters=5)
+        path = SSD.last_plan
+        stages = kernel_split(torch, lambda: SSD.mamba2_ssd_cuda(*args[0]))
+        pms, _ = timed(torch, lambda *a: SSD.mamba2_ssd_plain(
+            *a, chunk=SSD_SERVE[5]), args, iters=3)
+        work = ssd_work(SSD_SERVE, dtype)
+        bms, by = work_bound("tf32", *work)
+        fms, _ = work_bound("fp32", *work)
+        timings[dtype] = (kms, pms, bms, by, fms, path, stages)
+        print(f"[ssd] {dtype} {SSD_SERVE}: {path} path kernel_ms={kms:.4f} "
+              f"(per call {kcall:.4f}; "
+              + ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
+              + f") plain_ms={pms:.4f} library_ms=n/a bound_ms={bms:.4f} "
+              f"({by}; the products at the TF32 tensor-core peak), "
+              f"{bms / kms:.1%} of it; fma_bound_ms={fms:.4f} (the products "
+              f"at the fp32 FMA peak), {fms / kms:.1%} of it")
+        del args
+    return errs, timings
 
 
 class Kernels:
@@ -1329,7 +1454,8 @@ def device_split(torch, fn):
             getattr(e, "self_cuda_time_total", 0.0)
         split["total"] += us / 1e3
         for key, tags in (("flash", ("flash_bf16_kernel", "flash_f32_kernel")),
-                          ("ssd", ("ssd_kernel",))):
+                          ("ssd", ("ssd_kernel", "ssd_chunk_state",
+                                   "ssd_state_pass", "ssd_chunk_scan"))):
             if any(tag in e.key for tag in tags):
                 split[key] += us / 1e3
     return split
@@ -1380,8 +1506,8 @@ def phase_lm(torch, serve, FA, SSD):
     from repro_torch.launch import specs as sp
     from repro_torch.models import attention, ssm
     from repro_torch.models import model as mdl
-    launches = {"flash_attention[fp32]": 0, "flash_attention[bf16]": 0,
-                "mamba2_ssd": 0}
+    launches = {f"{name}[{dtype}]": 0 for dtype in LM_DTYPES
+                for name in ("flash_attention", "mamba2_ssd")}
     for dtype in LM_DTYPES:
         for arch in LM_ARCHS:
             cfg = lm_config(arch)
@@ -1407,7 +1533,7 @@ def phase_lm(torch, serve, FA, SSD):
                                      f"{n_fa} ssd={n_ssd}, want {n_attn} "
                                      f"and {n_mamba}")
             launches[f"flash_attention[{dtype}]"] += n_fa
-            launches["mamba2_ssd"] += n_ssd
+            launches[f"mamba2_ssd[{dtype}]"] += n_ssd
             if tuple(toks.shape) != (LM_BATCH, LM_GEN) or \
                     int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
                 raise AssertionError(f"lm {arch} {dtype}: tokens "
@@ -1519,13 +1645,13 @@ def main() -> int:
     card = card_line()
     print(f"[card] {card}")
     phase_build([gm, A, FA, SSD])
-    sass = flash_sass(FA)
+    sass, ssd_sass = phase_sass(FA, SSD)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     errs, timings = phase_kernel(torch, gm)
     r_errs, r_timings = phase_rescore(torch, gm, A)
     f_errs, f_timings = phase_flash(torch, FA)
-    s_err, s_timing = phase_ssd(torch, SSD)
+    s_errs, s_timings = phase_ssd(torch, SSD)
     phase_reference(torch, serve)
     launches = phase_main(torch, gm, serve)
     ann_launches, _ = phase_ann(torch, gm, A, serve)
@@ -1569,15 +1695,18 @@ def main() -> int:
             "gqa": {"shape": "B=8 H=32 Kh=4 S=2048 D=64 causal",
                     "ms": g[0], "plain_ms": g[1], "library_ms": g[2],
                     "bound_ms": g[3], "bound_by": g[4]}})
-    kms, pms, bms, by = s_timing
-    kernels.append({
-        "name": "mamba2_ssd", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/mamba2_ssd.cu",
-        "replaces": "src/repro/kernels/mamba2_ssd.py:82",
-        "launches": lm_launches["mamba2_ssd"], "max_abs_err": s_err,
-        "ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
-        "library_ms": None,
-        "shape": "Bt=8 L=2048 H=80 P=64 N=64 chunk=256 bf16"})
+    for dtype in LM_DTYPES:
+        name = f"mamba2_ssd[{dtype}]"
+        kms, pms, bms, by, fms, path, stages = s_timings[dtype]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/mamba2_ssd.cu",
+            "replaces": "src/repro/kernels/mamba2_ssd.py:82",
+            "launches": lm_launches[name], "max_abs_err": s_errs[dtype],
+            "ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+            "fma_bound_ms": fms, "library_ms": None, "path": path,
+            "stages_ms": stages, "sass": ssd_sass,
+            "shape": f"Bt=8 L=2048 H=80 P=64 N=64 chunk=256 {dtype}"})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,20 +1,29 @@
 #!/usr/bin/env python3
-"""Time this checkout's gallery-match kernel against another checkout's, on
-one GPU, in one process.
+"""Time this checkout's gallery-match or SSD kernel against another
+checkout's, on one GPU, in one process.
 
     python3 kernel_compare.py OTHER_CHECKOUT [--shapes Q:k,...] [--qk N]
+    python3 kernel_compare.py OTHER_CHECKOUT --kernel ssd
 
 OTHER_CHECKOUT is another checkout of this repository, for example the
 parent commit unpacked with ``git archive``.  Each kernel is built with
 ``nvcc`` from its own checkout's sources; both are then held against each
-other on one input, and timed in turns (other, this, this, other) on the
-same four 262,144-row galleries with ``chip_smoke.py``'s device timing
-(profiler kernel time), at D = 128 and each (Q, k) of ``--shapes``
-(default: Q in {1, Q_S, 16, 256} x k in {1, 5}), in each storage dtype.
-``--qk N`` sets this checkout's small-Q path limit on Q * k for the run
+other on one input, and timed in turns (other, this, this, other) with
+``chip_smoke.py``'s device timing (profiler kernel time).
+
+``--kernel gallery`` (the default): on the same four 262,144-row
+galleries, at D = 128 and each (Q, k) of ``--shapes`` (default: Q in
+{1, Q_S, 16, 256} x k in {1, 5}), in each storage dtype.  ``--qk N`` sets
+this checkout's small-Q path limit on Q * k for the run
 (``gallery_match.SMALL_QK``), to time that path where ``plan`` would not
-take it.  Prints the card, one line per shape, and a JSON object with
-every time.  Exits non-zero without a GPU.
+take it.
+
+``--kernel ssd``: the Mamba-2 SSD scan at zamba2's serving shape
+(``chip_smoke.SSD_SERVE``, as the model's strided views) in bf16 and fp32,
+y and the final state of the two held to ``chip_smoke``'s SSD bounds.
+
+Prints the card, one line per shape, and a JSON object with every time.
+Exits non-zero without a GPU.
 """
 from __future__ import annotations
 
@@ -31,18 +40,19 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 
-def load_other(other: Path, _build):
-    """The other checkout's gallery-match wrapper, bound to its own kernel
-    built into this checkout's build directory."""
+def load_other(other: Path, _build, name: str):
+    """The other checkout's wrapper module ``name`` (``gallery_match`` or
+    ``mamba2_ssd``), bound to its own kernel built into this checkout's
+    build directory."""
     src = other / "src" / "repro_torch" / "kernels"
-    spec = importlib.util.spec_from_file_location("other_gallery_match",
-                                                  src / "gallery_match.py")
+    spec = importlib.util.spec_from_file_location(f"other_{name}",
+                                                  src / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = _build.BUILD_DIR / "other_gallery_match.so"
+    so = _build.BUILD_DIR / f"other_{name}.so"
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
-                    str(src / "csrc" / "gallery_match.cu")], check=True)
+                    str(src / "csrc" / f"{name}.cu")], check=True)
     lib = ctypes.CDLL(str(so))
     own = _build.library
     _build.library = lambda name: lib    # its wrapper binds through ours
@@ -53,33 +63,33 @@ def load_other(other: Path, _build):
     return mod
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(usage=__doc__)
-    ap.add_argument("other", type=Path)
-    ap.add_argument("--shapes", default=None)
-    ap.add_argument("--qk", type=int, default=None)
-    args = ap.parse_args()
-    import torch
-    if not torch.cuda.is_available():
-        print("kernel_compare: no CUDA device", file=sys.stderr)
-        return 1
-    import chip_smoke as cs
-    from repro_torch.kernels import _build
-    from repro_torch.kernels import gallery_match as gm
-    if args.qk is not None:
-        gm.SMALL_QK = args.qk
-    shapes = ([tuple(int(x) for x in p.split(":"))
-               for p in args.shapes.split(",")] if args.shapes else
-              [(Q, k) for Q in (1, gm.SMALL_Q, 16, 256) for k in (1, 5)])
-
-    card = cs.card_line()
-    print(f"[card] {card}")
+def build_both(own, other: Path, _build, name: str):
+    """This checkout's module ``own`` built, and the other checkout's."""
     with ThreadPoolExecutor(2) as pool:
-        own = pool.submit(gm.build)
-        other = pool.submit(load_other, args.other.resolve(), _build)
-        own.result()
-        ogm = other.result()
-    torch.backends.cuda.matmul.allow_tf32 = False
+        mine = pool.submit(own.build)
+        theirs = pool.submit(load_other, other.resolve(), _build, name)
+        mine.result()
+        return theirs.result()
+
+
+def in_turns(cs, torch, fn_of, args):
+    """Device ms of ``fn_of(mod)`` timed on ``args`` in turns: other,
+    this, this, other."""
+    times = {"other": [], "this": []}
+    for name in ("other", "this", "this", "other"):
+        ms, _ = cs.timed(torch, fn_of(name), args)
+        times[name].append(ms)
+    return times
+
+
+def compare_gallery(cs, torch, _build, other, shapes_arg, qk):
+    from repro_torch.kernels import gallery_match as gm
+    if qk is not None:
+        gm.SMALL_QK = qk
+    shapes = ([tuple(int(x) for x in p.split(":"))
+               for p in shapes_arg.split(",")] if shapes_arg else
+              [(Q, k) for Q in (1, gm.SMALL_Q, 16, 256) for k in (1, 5)])
+    ogm = build_both(gm, other, _build, "gallery_match")
     gen = torch.Generator(device="cuda").manual_seed(99)
     rows = []
     for dtype in cs.DTYPES:
@@ -93,12 +103,9 @@ def main() -> int:
             if not err <= cs.TOL:
                 raise AssertionError(f"{dtype} Q={Q} k={k}: the two "
                                      f"kernels differ by {err}")
-            times = {"other": [], "this": []}
-            for name in ("other", "this", "this", "other"):
-                mod = ogm if name == "other" else gm
-                ms, _ = cs.timed(torch, lambda g, sc: cs.run_kernel(
-                    mod, q, g, sc, k), shards)
-                times[name].append(ms)
+            times = in_turns(cs, torch, lambda name: (
+                lambda g, sc, mod=(ogm if name == "other" else gm):
+                cs.run_kernel(mod, q, g, sc, k)), shards)
             o, t = (sum(v) / 2 for v in (times["other"], times["this"]))
             rows.append({"dtype": dtype, "Q": Q, "k": k,
                          "path": gm.last_plan[0], **times,
@@ -108,6 +115,60 @@ def main() -> int:
                   f"this {times['this'][0]:.4f} {times['this'][1]:.4f} ms "
                   f"({gm.last_plan[0]} path), this/other {t / o:.3f}")
         del shards
+    return rows
+
+
+def compare_ssd(cs, torch, _build, other):
+    from repro_torch.kernels import mamba2_ssd as SSD
+    ossd = build_both(SSD, other, _build, "mamba2_ssd")
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    rows = []
+    for dtype in cs.LM_DTYPES:
+        args = [cs.ssd_inputs(torch, cs.SSD_SERVE, dtype, gen, True)]
+        a = ossd.mamba2_ssd_cuda(*args[0])
+        b = SSD.mamba2_ssd_cuda(*args[0])
+        for what, got, want in zip(("y", "state"), b, a):
+            if not cs.ssd_close(torch, got, want):
+                raise AssertionError(
+                    f"ssd {dtype}: the two kernels' {what} differ by "
+                    f"{float((got - want).abs().max()):.3g} (atol "
+                    f"{cs.SSD_ATOL}, rtol {cs.SSD_RTOL})")
+        times = in_turns(cs, torch, lambda name: (
+            lambda *t, mod=(ossd if name == "other" else SSD):
+            mod.mamba2_ssd_cuda(*t)), args)
+        o, t = (sum(v) / 2 for v in (times["other"], times["this"]))
+        rows.append({"dtype": dtype, "shape": list(cs.SSD_SERVE),
+                     "path": SSD.last_plan, **times, "this_over_other": t / o})
+        print(f"[compare] ssd {dtype} {cs.SSD_SERVE}: other "
+              f"{times['other'][0]:.4f} {times['other'][1]:.4f} ms, this "
+              f"{times['this'][0]:.4f} {times['this'][1]:.4f} ms "
+              f"({SSD.last_plan} path), this/other {t / o:.3f}")
+        del args, a, b
+    return rows
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(usage=__doc__)
+    ap.add_argument("other", type=Path)
+    ap.add_argument("--kernel", choices=("gallery", "ssd"), default="gallery")
+    ap.add_argument("--shapes", default=None)
+    ap.add_argument("--qk", type=int, default=None)
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_compare: no CUDA device", file=sys.stderr)
+        return 1
+    import chip_smoke as cs
+    from repro_torch.kernels import _build
+
+    card = cs.card_line()
+    print(f"[card] {card}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if args.kernel == "ssd":
+        rows = compare_ssd(cs, torch, _build, args.other)
+    else:
+        rows = compare_gallery(cs, torch, _build, args.other, args.shapes,
+                               args.qk)
     print(card)
     print(json.dumps({"compare": rows}))
     return 0

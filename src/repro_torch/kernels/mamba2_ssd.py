@@ -18,6 +18,17 @@ No ``D`` skip and no initial state: the model adds the skip outside.
 
 The kernel takes strides over (batch, time), so the model's x, B and C,
 which are column slices of one projection, go in without a copy.
+
+Two paths, chosen per call by the pure function ``plan``: the staged path
+(three kernels: chunk states, state passing, chunk scan; tensor cores with
+the fp32 factors split into bf16 hi and lo parts) for P and N in
+``STAGED_DIMS``, a chunk that is a multiple of 16 up to
+``STAGED_MAX_CHUNK`` and 16-byte aligned x, B and C; the general path (one
+block per (sequence, head) walking its chunks on the FMA units) for the
+rest.  ``last_plan`` holds the path of the last CUDA call.  Asked for
+``stages``, both the kernel and the plain version also return the staged
+intermediates: the chunk states, each chunk's total log-decay and the
+state entering each chunk.
 """
 from __future__ import annotations
 
@@ -28,11 +39,25 @@ import torch
 from repro_torch.kernels import _build
 
 MAX_DIM = 128           # P and N: the widest instantiated thread layout
+STAGED_DIMS = (16, 32, 64)  # P and N of the staged path (SSD_STAGED_DIMS)
+STAGED_MAX_CHUNK = 256      # its largest chunk (kMaxChunk)
 
-# launches of the CUDA kernel
+# launches of the CUDA kernel: one per wrapper call, on either path
 launches = 0
+# the path ("staged" or "general") of the last call on the card
+last_plan = None
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_ci, _vp = ctypes.c_int, ctypes.c_void_p
+_strides = ctypes.POINTER(ctypes.c_longlong)
+# the C functions of csrc/mamba2_ssd.cu: (argument types, result type)
+_SIGNATURES = {
+    "ssd_forward": ([_ci, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci,
+                     _ci, _ci, _ci, _strides, _vp], _ci),
+    "ssd_staged": ([_ci, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+                    _ci, _ci, _ci, _ci, _ci, _ci, _strides, _vp], _ci),
+    "ssd_error_string": ([_ci], ctypes.c_char_p),
+}
 _lib = None
 
 
@@ -47,22 +72,41 @@ def _library():
     global _lib
     if _lib is None:
         lib = _build.library("mamba2_ssd")
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.ssd_forward.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp, ci, ci,
-                                    ci, ci, ci, ci,
-                                    ctypes.POINTER(ctypes.c_longlong), vp]
-        lib.ssd_forward.restype = ci
-        lib.ssd_error_string.argtypes = [ci]
-        lib.ssd_error_string.restype = ctypes.c_char_p
+        for name, (args, res) in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = args, res
         _lib = lib
     return _lib
 
 
-def mamba2_ssd_plain(x, dt, A, B, C, *, chunk: int):
+def plan(P: int, N: int, chunk: int, aligned: bool) -> str:
+    """The path a call takes: ``"staged"`` for P and N in ``STAGED_DIMS``,
+    a chunk that is a multiple of 16 up to ``STAGED_MAX_CHUNK`` and
+    ``aligned`` x, B and C (16-byte addresses and row strides), else
+    ``"general"``."""
+    if P in STAGED_DIMS and N in STAGED_DIMS and chunk % 16 == 0 and \
+            chunk <= STAGED_MAX_CHUNK and aligned:
+        return "staged"
+    return "general"
+
+
+def aligned(*tensors) -> bool:
+    """Whether each tensor's address and its strides over (batch, time)
+    are multiples of 16 bytes, as the staged path's 16-byte loads need."""
+    return all(t.data_ptr() % 16 == 0 and
+               all(t.stride(d) * t.element_size() % 16 == 0 for d in (0, 1))
+               for t in tensors)
+
+
+def mamba2_ssd_plain(x, dt, A, B, C, *, chunk: int, stages: bool = False):
     """The kernel's function in plain PyTorch, on whatever device the
     tensors are on: the chunked fp32 math, intra-chunk quadratic form and
     a sequential pass over the chunks' states.  The CPU path, and what the
-    kernel is held against on the card."""
+    kernel is held against on the card.  With ``stages`` it also returns
+    the staged path's intermediates, {"chunk_state": (Bt, nc, H, P, N),
+    "chunk_total": (Bt, nc, H), "passed_state": (Bt, nc, H, P, N)}: the
+    state each chunk adds alone, its total log-decay and the state
+    entering it."""
     Bt, L, H, P = x.shape
     N = B.shape[-1]
     c, nc = chunk, L // chunk
@@ -84,11 +128,17 @@ def mamba2_ssd_plain(x, dt, A, B, C, *, chunk: int):
     w = torch.exp(total[:, :, None, :] - cum)              # (Bt,nc,c,H)
     dBx = torch.einsum("bjthp,bjtn->bjhpn", xdt * w[..., None], Bc)
     st = torch.zeros((Bt, H, P, N), dtype=torch.float32, device=x.device)
+    passed = []
     for j in range(nc):
+        passed.append(st)
         y[:, j] += torch.exp(cum[:, j])[..., None] * torch.einsum(
             "btn,bhpn->bthp", Cc[:, j], st)
         st = torch.exp(total[:, j])[:, :, None, None] * st + dBx[:, j]
-    return y.reshape(Bt, L, H, P), st
+    if not stages:
+        return y.reshape(Bt, L, H, P), st
+    return y.reshape(Bt, L, H, P), st, {
+        "chunk_state": dBx, "chunk_total": total,
+        "passed_state": torch.stack(passed, dim=1)}
 
 
 def _check(x, dt, A, B, C, chunk):
@@ -110,8 +160,8 @@ def _check(x, dt, A, B, C, chunk):
         raise ValueError("mamba2_ssd: tensors on several devices")
 
 
-def _ssd_cuda(x, dt, A, B, C, chunk: int):
-    global launches
+def _check_kernel(x, dt, A, B, C, chunk):
+    """What either CUDA path takes, beyond ``_check``."""
     if len({x.dtype, B.dtype, C.dtype}) != 1 or x.dtype not in _DTYPE_CODE:
         raise ValueError("mamba2_ssd: x, B and C must be all fp32 or all "
                          "bf16")
@@ -126,37 +176,67 @@ def _ssd_cuda(x, dt, A, B, C, chunk: int):
             B.stride(2) != 1 or C.stride(2) != 1 or not A.is_contiguous():
         raise ValueError("mamba2_ssd: the (H, P) of x, the H of dt and the N "
                          "of B and C must be contiguous")
-    if max(H, Bt) > 65535:
-        raise ValueError("mamba2_ssd: too many heads or sequences for the "
-                         "grid")
+    if max(H, Bt, L // chunk) > 65535:
+        raise ValueError("mamba2_ssd: too many heads, sequences or chunks "
+                         "for the grid")
+
+
+def _ssd_cuda(x, dt, A, B, C, chunk: int, stages: bool):
+    global launches, last_plan
+    Bt, L, H, P = x.shape
+    N = B.shape[-1]
+    path = plan(P, N, chunk, aligned(x, B, C))
     lib = _library()
-    y = torch.empty((Bt, L, H, P), dtype=torch.float32, device=x.device)
-    state = torch.empty((Bt, H, P, N), dtype=torch.float32, device=x.device)
+    dev = x.device
+    y = torch.empty((Bt, L, H, P), dtype=torch.float32, device=dev)
+    state = torch.empty((Bt, H, P, N), dtype=torch.float32, device=dev)
     strides = (ctypes.c_longlong * 8)(
         x.stride(0), x.stride(1), dt.stride(0), dt.stride(1), B.stride(0),
         B.stride(1), C.stride(0), C.stride(1))
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.ssd_forward(_DTYPE_CODE[x.dtype], x.data_ptr(),
-                              dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-                              C.data_ptr(), y.data_ptr(), state.data_ptr(),
-                              Bt, L, H, P, N, chunk, strides, stream)
+    ptrs = (x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), y.data_ptr(), state.data_ptr())
+    staged = None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if path == "staged":
+            nc = L // chunk
+            staged = {
+                "chunk_state": torch.empty((Bt, nc, H, P, N),
+                                           dtype=torch.float32, device=dev),
+                "chunk_total": torch.empty((Bt, nc, H), dtype=torch.float32,
+                                           device=dev),
+                "passed_state": torch.empty((Bt, nc, H, P, N),
+                                            dtype=torch.float32, device=dev)}
+            err = lib.ssd_staged(
+                _DTYPE_CODE[x.dtype], *ptrs,
+                staged["chunk_state"].data_ptr(),
+                staged["passed_state"].data_ptr(),
+                staged["chunk_total"].data_ptr(), Bt, L, H, P, N, chunk,
+                strides, stream)
+        else:
+            err = lib.ssd_forward(_DTYPE_CODE[x.dtype], *ptrs, Bt, L, H, P,
+                                  N, chunk, strides, stream)
     if err != 0:
-        raise RuntimeError("mamba2_ssd: kernel launch failed: "
+        raise RuntimeError(f"mamba2_ssd: {path} kernel launch failed: "
                            + lib.ssd_error_string(err).decode())
     launches += 1
-    return y, state
+    last_plan = path
+    return (y, state, staged) if stages else (y, state)
 
 
-def mamba2_ssd_cuda(x, dt, A, B, C, *, chunk: int = 256):
+def mamba2_ssd_cuda(x, dt, A, B, C, *, chunk: int = 256,
+                    stages: bool = False):
     """x: (Bt, L, H, P); dt: (Bt, L, H); A: (H,); B, C: (Bt, L, N).
     Returns (y (Bt, L, H, P) fp32, state (Bt, H, P, N) fp32), with the
     chunk ``min(chunk, L)``: the kernel on a CUDA tensor, the plain version
-    on a CPU tensor."""
+    on a CPU tensor.  With ``stages`` a third item holds the staged
+    intermediates (see ``mamba2_ssd_plain``); the general path has none
+    (None)."""
     chunk = min(chunk, x.shape[1])
     _check(x, dt, A, B, C, chunk)
     if x.device.type == "cpu":
-        return mamba2_ssd_plain(x, dt, A, B, C, chunk=chunk)
+        return mamba2_ssd_plain(x, dt, A, B, C, chunk=chunk, stages=stages)
+    _check_kernel(x, dt, A, B, C, chunk)
     if x.device.type == "cuda":
-        return _ssd_cuda(x, dt, A, B, C, chunk)
+        return _ssd_cuda(x, dt, A, B, C, chunk, stages)
     raise ValueError(f"mamba2_ssd: no kernel for device {x.device}")
