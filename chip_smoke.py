@@ -30,9 +30,18 @@ Phases, each printing its lines; any failure exits non-zero:
    version over the ragged cells of one 262,144-row shard (pad rows
    poisoned, so a read of one shows), at Q in {1, 16, 256}, c in
    {1, 8, 16}, k in {1, 5}, plus -1 probes (c > K), k past the probed
-   rows, empty cells, D = 36 and 260, a misaligned array and equal rows
-   in two probed cells; then its and the plain version's device times at
-   the serving shape (Q = 1, c = 8, k = 1) beside the bound;
+   rows, empty cells, D = 36 and 260 and a misaligned array (the
+   two-pass path), equal rows in two probed cells (positions equal), a
+   query whose every probe is -1, k = MAX_K at Q = 16 and 256 with
+   c = 16, cells whose valid rows are exact multiples of a warp's rows
+   for each block shape and with one and several passes a block, and 40
+   probes a query; the count of inputs each path took; two runs
+   bit-identical at the serving shape; the check must reject a planted
+   fault at k = 5 (top score x1.05, first two positions swapped); then
+   its device and per-call times at the serving shape (Q = 1, c = 8,
+   k = 1), with the path ``plan()`` took and the kernels launched a call
+   (from a trace: one, on the fused path), beside the plain version's,
+   an empty kernel's on the same grid (the latency floor) and the bound;
 5. flash-attention kernel vs plain: in fp32 and bf16, on the CPU tests'
    shapes (GQA, MQA, bidirectional, window 128, S = 384, 192/128 head
    dims, D = 80, Sq < Sk), the kernel's edges (D = 240 with window 1024,
@@ -504,15 +513,18 @@ def phase_kernel(torch, gm):
     return errs, timings
 
 
-def shard_cells(torch, gm, dtype, K, D, gen, mean_len=256, misalign=False):
+def shard_cells(torch, gm, dtype, K, D, gen, mean_len=256, misalign=False,
+                lens=None):
     """One shard's packed cells in the storage dtype: (cells, scale or
     None, lens, L).  Lengths are ragged around ``mean_len`` with every 97th
-    cell empty; pad rows are poisoned (NaN, or int8 rows with a 1e30
-    scale), so a kernel that scored one would be caught.  ``misalign``
-    starts the array one element past a 16-byte boundary."""
-    lens = (mean_len + 0.15 * mean_len * torch.randn(
-        K, generator=gen, device=DEV)).round().clamp(min=0).int()
-    lens[::97] = 0
+    cell empty, unless ``lens`` gives them; pad rows are poisoned (NaN, or
+    int8 rows with a 1e30 scale), so a kernel that scored one would be
+    caught.  ``misalign`` starts the array one element past a 16-byte
+    boundary."""
+    if lens is None:
+        lens = (mean_len + 0.15 * mean_len * torch.randn(
+            K, generator=gen, device=DEV)).round().clamp(min=0).int()
+        lens[::97] = 0
     L = max(8, -(-int(lens.max()) // 8) * 8)
     rows = torch.randn((K * L, D), generator=gen, device=DEV)
     rows = rows / torch.linalg.vector_norm(rows, dim=-1, keepdim=True)
@@ -540,15 +552,20 @@ def probe_table(torch, Q, c, K, gen):
     return ids.contiguous()
 
 
-def compare_rescore(torch, A, q, cells, scale, ids, lens, L, k, strict=False):
+def compare_rescore(torch, A, q, cells, scale, ids, lens, L, k, strict=False,
+                    fault=None):
     """Rescore kernel vs plain on one input; returns the max abs score
     error.  A position may differ from the plain version's only where the
     plain version scores the kernel's pick within TOL of its own, and must
     be a valid row of a probed cell; ``strict`` asks for equal positions
-    (inputs with exact ties)."""
+    (inputs with exact ties).  ``fault`` plants a fault in the kernel's
+    (scores, positions) before they are checked (the check must then
+    fail)."""
     Q = q.shape[0]
     s, p = A.cell_rescore_cuda(q, cells, ids, lens, scale, k=k, L=L)
     torch.cuda.synchronize()
+    if fault is not None:
+        s, p = fault(s.clone(), p.clone())
     qc = q.to(torch.bfloat16) if cells.dtype == torch.bfloat16 else q
     ps, pp = A.cell_rescore_plain(qc, cells, ids, lens, scale, k=k, L=L,
                                   fuse_norm=True)
@@ -637,17 +654,73 @@ def tie_cells(torch, gm, dtype, gen, D=128):
     return q, cells, scale, ids, lens, L
 
 
+def kernels_per_call(torch, fn, calls):
+    """{kernel name: launches a call} of ``fn(*args)`` over ``calls``, from
+    a profiler trace of one round (each kernel's count over the calls,
+    rounded up, as ``_per_kernel_us`` counts them); a trace that holds no
+    kernel is taken again, up to three times, as in ``timed``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for args in calls:
+        fn(*args)
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for args in calls:
+                fn(*args)
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                name = re.sub(r"^void |\(anonymous namespace\)::|[<(].*$",
+                              "", e.key)
+                out[name] = out.get(name, 0) + math.ceil(e.count / len(calls))
+        if out:
+            return out
+    raise AssertionError("the profiler saw no kernel")
+
+
+def rescore_edges(torch, gm, A, dtype, gen, D=128):
+    """The fused path's edges, as (args, keywords) for ``compare_rescore``:
+    cells whose valid rows are exact multiples of half a warp's rows (R)
+    or of R, padded to L = R, 2 R and 8 R, so ``plan`` gives blocks of 1,
+    2 and 4 warps; each probed 16 times a query by Q = 2 (one pass a
+    block) and Q = 256 (one-warp blocks making 1, 2 and 8 passes), at
+    k = 1 and 5; then 40 probes a query, so the winning slots lie past a
+    warp's 32 lanes, at k = 5 and k = MAX_K."""
+    R = A.plan(1, 1, 1, D, {"fp32": 4, "bf16": 2, "int8": 1}[dtype], True,
+               132)[2]
+    K = 64
+    out = []
+    for L, step in ((R, R // 2), (2 * R, R), (8 * R, R)):
+        lens = (torch.arange(K, device=DEV) % (L // step + 1) * step).int()
+        cells, scale, lens, L = shard_cells(torch, gm, dtype, K, D, gen,
+                                            lens=lens)
+        for Q in (2, 256):
+            ids = probe_table(torch, Q, 16, K, gen)
+            q = torch.randn((Q, D), generator=gen, device=DEV)
+            for k in (1, 5):
+                out.append(((q, cells, scale, ids, lens, L, k), {}))
+    wc, ws, wl, wL = shard_cells(torch, gm, dtype, 48, D, gen, mean_len=8)
+    ids = probe_table(torch, 3, 40, 48, gen)
+    q = torch.randn((3, D), generator=gen, device=DEV)
+    out.append(((q, wc, ws, ids, wl, wL, 5), {}))
+    out.append(((q, wc, ws, ids, wl, wL, A.MAX_K), {}))
+    return out
+
+
 def phase_rescore(torch, gm, A):
     gen = torch.Generator(device=DEV).manual_seed(4321)
     D = 128
     errs, timings = {}, {}
     for dtype in DTYPES:
-        err, n = 0.0, 0
+        err, n, paths = 0.0, 0, {}
 
         def check(*args, **kw):
             nonlocal err, n
             err = max(err, compare_rescore(torch, A, *args, **kw))
             n += 1
+            paths[A.last_plan[0]] = paths.get(A.last_plan[0], 0) + 1
 
         cells, scale, lens, L = shard_cells(torch, gm, dtype, CELLS, D, gen)
         for Q in (1, 16, 256):
@@ -671,26 +744,79 @@ def phase_rescore(torch, gm, A):
             q = torch.randn((6, Dx), generator=gen, device=DEV)
             check(q, xc, xs, ids, xl, xL, k)
         check(*tie_cells(torch, gm, dtype, gen), 6, strict=True)
+        # a query whose every probe is -1, on the serving cells
+        check(torch.randn((3, D), generator=gen, device=DEV), cells, scale,
+              torch.full((3, NPROBE), -1, dtype=torch.int32, device=DEV),
+              lens, L, 5)
+        # k = MAX_K on the serving cells, at Q = 16 and 256 with c = 16
+        for Q in (16, 256):
+            check(torch.randn((Q, D), generator=gen, device=DEV), cells,
+                  scale, probe_table(torch, Q, 16, CELLS, gen), lens, L,
+                  A.MAX_K)
+        for args, kw in rescore_edges(torch, gm, A, dtype, gen, D):
+            check(*args, **kw)
         errs[dtype] = err
-        print(f"[rescore] {dtype}: kernel == plain on {n} inputs, max abs "
-              f"score error {err:.3g} (tolerance {TOL})")
+        print(f"[rescore] {dtype}: kernel == plain on {n} inputs ("
+              + ", ".join(f"{v} {p} path" for p, v in sorted(paths.items()))
+              + f"), max abs score error {err:.3g} (tolerance {TOL})")
+        # two runs bit-identical at the serving shape, and the check must
+        # reject a planted fault in the kernel's result at k = 5
+        q = torch.randn((1, D), generator=gen, device=DEV)
+        ids = probe_table(torch, 1, NPROBE, CELLS, gen)
+        for k in (1, 5):
+            a = run_rescore(A, q, cells, scale, ids, lens, L, k)
+            b = run_rescore(A, q, cells, scale, ids, lens, L, k)
+            if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+                raise AssertionError(f"rescore {dtype} k={k}: two runs at "
+                                     "the serving shape differ")
+        caught = 0
+        for Q in (1, 16):
+            qf = torch.randn((Q, D), generator=gen, device=DEV)
+            idf = probe_table(torch, Q, NPROBE, CELLS, gen)
+            for fault in (fault_top_score, fault_swap):
+                try:
+                    compare_rescore(torch, A, qf, cells, scale, idf, lens, L,
+                                    5, fault=fault)
+                except AssertionError:
+                    caught += 1
+                    continue
+                raise AssertionError(f"rescore {dtype} Q={Q}: the check "
+                                     f"passed the planted fault "
+                                     f"{fault.__name__}")
+        print(f"[rescore] {dtype}: two runs bit-identical at Q=1 c={NPROBE} "
+              f"k=1 and k=5 ({A.last_plan[0]} path); the check rejects both "
+              f"planted faults at k=5 ({caught} of {caught}: top score "
+              f"x{PLANT}, first two positions swapped)")
         # the serving shape; four shards' cells and 16 probe tables each,
         # so one round reads more distinct rows than the L2 cache holds
         shards = [(cells, scale, lens, L)] + [
             shard_cells(torch, gm, dtype, CELLS, D, gen) for _ in range(3)]
-        q = torch.randn((1, D), generator=gen, device=DEV)
         calls = [(q, sc[0], sc[1], probe_table(torch, 1, NPROBE, CELLS, gen),
                   sc[2], sc[3], 1) for sc in shards for _ in range(16)]
         kms, kcall = timed(torch, lambda *a: run_rescore(A, *a), calls)
-        pms, _ = timed(torch, lambda *a: run_rescore_plain(torch, A, *a),
-                       calls)
+        plan = A.last_plan
+        per_call = kernels_per_call(torch, lambda *a: run_rescore(A, *a),
+                                    calls)
+        n_kern = sum(per_call.values())
+        if plan[0] != "fused" or n_kern != 1:
+            raise AssertionError(f"rescore {dtype}: the serving shape took "
+                                 f"the {plan[0]} path with {per_call} "
+                                 "kernels a call, not one fused launch")
+        pms, pcall = timed(torch, lambda *a: run_rescore_plain(
+            torch, A, *a), calls)
+        fms, _ = timed(torch, lambda: A.empty_launch(q.device, plan[4],
+                                                     plan[1]), [()] * 16)
         work = [rescore_work(dtype, 1, a[3], a[4], D, 1) for a in calls]
         bms, by = work_bound(dtype, sum(w[0] for w in work) / len(work),
                              sum(w[1] for w in work) / len(work))
-        timings[dtype] = (kms, pms, bms, by)
+        timings[dtype] = (kms, pms, bms, by, kcall, fms, plan)
         print(f"[rescore] {dtype} Q=1 c={NPROBE} k=1 L={L} D={D}: "
-              f"kernel_ms={kms:.4f} (per call {kcall:.4f}) plain_ms={pms:.4f}"
-              f" library_ms=n/a bound_ms={bms:.6f} ({by})")
+              f"kernel_ms={kms:.4f} (per call {kcall:.4f}, {plan[0]} path, "
+              f"{plan[1]} warps a block, {plan[2]} rows a warp, {plan[3]} "
+              f"pass, {plan[4]} blocks; kernels a call {per_call}) "
+              f"plain_ms={pms:.4f} (per "
+              f"call {pcall:.4f}) library_ms=n/a empty_kernel_ms={fms:.4f} "
+              f"(same grid) bound_ms={bms:.6f} ({by})")
         del shards, calls
     return errs, timings
 
@@ -1671,14 +1797,16 @@ def main() -> int:
             "library_ms": lms, "path": path,
             "shape": f"Q=1 N={N_BIG} D=128 k=1"})
     for dtype in DTYPES:
-        kms, pms, bms, by = r_timings[dtype]
+        kms, pms, bms, by, kcall, fms, plan = r_timings[dtype]
         kernels.append({
             "name": f"cell_rescore[{dtype}]", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/cell_rescore.cu",
             "replaces": "src/repro/kernels/ann_match.py:200",
             "launches": ann_launches[dtype][1], "max_abs_err": r_errs[dtype],
             "ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
-            "library_ms": None,
+            "library_ms": None, "call_ms": kcall, "empty_kernel_ms": fms,
+            "path": plan[0], "warps": plan[1], "rows_a_warp": plan[2],
+            "passes": plan[3], "blocks": plan[4],
             "shape": f"Q=1 c={NPROBE} K={CELLS} D=128 k=1"})
     for dtype in LM_DTYPES:
         name = f"flash_attention[{dtype}]"

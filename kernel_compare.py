@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time this checkout's gallery-match or SSD kernel against another
-checkout's, on one GPU, in one process.
+"""Time this checkout's gallery-match, cell-rescore or SSD kernel against
+another checkout's, on one GPU, in one process.
 
     python3 kernel_compare.py OTHER_CHECKOUT [--shapes Q:k,...] [--qk N]
+    python3 kernel_compare.py OTHER_CHECKOUT --kernel rescore
     python3 kernel_compare.py OTHER_CHECKOUT --kernel ssd
 
 OTHER_CHECKOUT is another checkout of this repository, for example the
@@ -17,6 +18,14 @@ galleries, at D = 128 and each (Q, k) of ``--shapes`` (default: Q in
 this checkout's small-Q path limit on Q * k for the run
 (``gallery_match.SMALL_QK``), to time that path where ``plan`` would not
 take it.
+
+``--kernel rescore``: the cell rescore through each checkout's wrapper
+(``cell_rescore_cuda``), on phase 4's serving inputs (``chip_smoke``:
+four shards of 1024 ragged cells of 262,144 rows, 16 probe tables each,
+c = 8) at Q in {1, 16, 256} x k in {1, 5}, in each storage dtype; the
+two held to each other on every call of a round (scores within
+``chip_smoke.TOL``, the same slots filled), then device ms and call ms
+(CUDA events around back-to-back calls, so the host's share too).
 
 ``--kernel ssd``: the Mamba-2 SSD scan at zamba2's serving shape
 (``chip_smoke.SSD_SERVE``, as the model's strided views) in bf16 and fp32,
@@ -40,19 +49,22 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 
-def load_other(other: Path, _build, name: str):
-    """The other checkout's wrapper module ``name`` (``gallery_match`` or
-    ``mamba2_ssd``), bound to its own kernel built into this checkout's
-    build directory."""
+def load_other(other: Path, _build, name: str, source: str = None):
+    """The other checkout's wrapper module ``name`` (``gallery_match``,
+    ``ann_match`` or ``mamba2_ssd``), bound to its own kernel
+    ``csrc/{source}.cu`` (``source`` defaults to ``name``) built into this
+    checkout's build directory."""
+    source = source or name
     src = other / "src" / "repro_torch" / "kernels"
     spec = importlib.util.spec_from_file_location(f"other_{name}",
                                                   src / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod          # for its dataclasses
     spec.loader.exec_module(mod)
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = _build.BUILD_DIR / f"other_{name}.so"
+    so = _build.BUILD_DIR / f"other_{source}.so"
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
-                    str(src / "csrc" / f"{name}.cu")], check=True)
+                    str(src / "csrc" / f"{source}.cu")], check=True)
     lib = ctypes.CDLL(str(so))
     own = _build.library
     _build.library = lambda name: lib    # its wrapper binds through ours
@@ -63,22 +75,25 @@ def load_other(other: Path, _build, name: str):
     return mod
 
 
-def build_both(own, other: Path, _build, name: str):
+def build_both(own, other: Path, _build, name: str, source: str = None):
     """This checkout's module ``own`` built, and the other checkout's."""
     with ThreadPoolExecutor(2) as pool:
         mine = pool.submit(own.build)
-        theirs = pool.submit(load_other, other.resolve(), _build, name)
+        theirs = pool.submit(load_other, other.resolve(), _build, name,
+                             source)
         mine.result()
         return theirs.result()
 
 
 def in_turns(cs, torch, fn_of, args):
-    """Device ms of ``fn_of(mod)`` timed on ``args`` in turns: other,
+    """Device ms (``other``, ``this``) and call ms (``other_call``,
+    ``this_call``) of ``fn_of(mod)`` timed on ``args`` in turns: other,
     this, this, other."""
-    times = {"other": [], "this": []}
+    times = {"other": [], "this": [], "other_call": [], "this_call": []}
     for name in ("other", "this", "this", "other"):
-        ms, _ = cs.timed(torch, fn_of(name), args)
+        ms, call_ms = cs.timed(torch, fn_of(name), args)
         times[name].append(ms)
+        times[f"{name}_call"].append(call_ms)
     return times
 
 
@@ -118,6 +133,51 @@ def compare_gallery(cs, torch, _build, other, shapes_arg, qk):
     return rows
 
 
+def compare_rescore(cs, torch, _build, other):
+    from repro_torch.kernels import ann_match as A
+    from repro_torch.kernels import gallery_match as gm
+    oA = build_both(A, other, _build, "ann_match", "cell_rescore")
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    rows = []
+    for dtype in cs.DTYPES:
+        shards = [cs.shard_cells(torch, gm, dtype, cs.CELLS, 128, gen)
+                  for _ in range(4)]
+        for Q in (1, 16, 256):
+            for k in (1, 5):
+                q = torch.randn((Q, 128), generator=gen, device="cuda")
+                calls = [(q, cells, scale, cs.probe_table(
+                    torch, Q, cs.NPROBE, cs.CELLS, gen), lens, L, k)
+                    for cells, scale, lens, L in shards for _ in range(16)]
+                for args in calls:
+                    a = cs.run_rescore(oA, *args)
+                    b = cs.run_rescore(A, *args)
+                    err = float((a[0] - b[0]).abs().max())
+                    if not (err <= cs.TOL and torch.equal(a[1] < 0,
+                                                          b[1] < 0)):
+                        raise AssertionError(
+                            f"rescore {dtype} Q={Q} k={k}: the two kernels "
+                            f"differ (score error {err})")
+                times = in_turns(cs, torch, lambda name: (
+                    lambda *t, mod=(oA if name == "other" else A):
+                    cs.run_rescore(mod, *t)), calls)
+                o, t, oc, tc = (sum(times[n]) / 2 for n in (
+                    "other", "this", "other_call", "this_call"))
+                rows.append({"dtype": dtype, "Q": Q, "c": cs.NPROBE, "k": k,
+                             "plan": list(A.last_plan), **times,
+                             "this_over_other": t / o,
+                             "call_this_over_other": tc / oc})
+                print(f"[compare] rescore {dtype} Q={Q:3d} c={cs.NPROBE} "
+                      f"k={k}: other {times['other'][0]:.4f} "
+                      f"{times['other'][1]:.4f} ms (call {oc:.4f}), this "
+                      f"{times['this'][0]:.4f} {times['this'][1]:.4f} ms "
+                      f"(call {tc:.4f}; {A.last_plan[0]} path, "
+                      f"{A.last_plan[1]} warps a block, {A.last_plan[3]} "
+                      f"pass), this/other "
+                      f"{t / o:.3f}, calls {tc / oc:.3f}")
+        del shards
+    return rows
+
+
 def compare_ssd(cs, torch, _build, other):
     from repro_torch.kernels import mamba2_ssd as SSD
     ossd = build_both(SSD, other, _build, "mamba2_ssd")
@@ -150,7 +210,8 @@ def compare_ssd(cs, torch, _build, other):
 def main() -> int:
     ap = argparse.ArgumentParser(usage=__doc__)
     ap.add_argument("other", type=Path)
-    ap.add_argument("--kernel", choices=("gallery", "ssd"), default="gallery")
+    ap.add_argument("--kernel", choices=("gallery", "rescore", "ssd"),
+                    default="gallery")
     ap.add_argument("--shapes", default=None)
     ap.add_argument("--qk", type=int, default=None)
     args = ap.parse_args()
@@ -166,6 +227,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.kernel == "ssd":
         rows = compare_ssd(cs, torch, _build, args.other)
+    elif args.kernel == "rescore":
+        rows = compare_rescore(cs, torch, _build, args.other)
     else:
         rows = compare_gallery(cs, torch, _build, args.other, args.shapes,
                                args.qk)

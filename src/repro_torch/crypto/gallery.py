@@ -82,6 +82,22 @@ def _cipher_key(seed: int) -> int:
     return seed ^ 0x5EC2E7
 
 
+def _to_host(tensors):
+    """Numpy copies of ``tensors`` (each of 4-byte elements), brought from
+    the device in one transfer."""
+    flat = torch.cat([t.reshape(-1).view(torch.int32) for t in tensors])
+    flat = flat.cpu().numpy()
+    out, at = [], 0
+    for t in tensors:
+        n = t.numel()
+        out.append(flat[at:at + n].view(_NP_DTYPE[t.dtype]).reshape(t.shape))
+        at += n
+    return out
+
+
+_NP_DTYPE = {torch.float32: np.float32, torch.int32: np.int32}
+
+
 class SecureGallery:
     def __init__(self, dim: int, *, seed: int = 7, template_kind: str =
                  "face_embedding", n_shards: int = 1,
@@ -388,13 +404,13 @@ class SecureGallery:
             return K.centroid_topc_quant(q, *cb, c=nprobe)
         return K.centroid_topc(q, *cb, c=nprobe)
 
-    def _match_shard_ann(self, s: int, q: torch.Tensor,
-                         cell_ids: torch.Tensor, ids: np.ndarray, k: int,
-                         dtype: str, code: Optional[int] = None):
-        """Exact rescore of shard ``s`` restricted to the probed cells
-        (and, with a tenant ``code``, to that tenant's rows); ``ids`` is
-        the probe table on the host.  Returns (scores, global ids,
-        rows_scored) on the host, with -1 ids on unfilled slots."""
+    def _rescore_shard_ann(self, s: int, q: torch.Tensor,
+                           cell_ids: torch.Tensor, k: int, dtype: str,
+                           code: Optional[int] = None):
+        """Launch the exact rescore of shard ``s`` restricted to the probed
+        cells (and, with a tenant ``code``, to that tenant's rows).
+        Returns (the shard's packed view, scores, padded positions), the
+        last two still on the device."""
         ann = self._prepare_ann(s, dtype, code)
         layout = ann["layout"]
         if dtype == "int8":
@@ -406,7 +422,14 @@ class SecureGallery:
                 else ann["packed"]
             scores, pos = K.cell_rescore(q, packed, cell_ids, ann["lens"],
                                          k=k, L=layout.L)
-        pos = pos.cpu().numpy()
+        return ann, scores, pos
+
+    def _shard_ann_gids(self, s: int, ann: dict, pos: np.ndarray,
+                        ids: np.ndarray, code: Optional[int] = None):
+        """Shard ``s``'s padded positions -> global ids (-1 on unfilled
+        slots), and the gallery rows rescored per query in the shard;
+        ``ids`` is the probe table, all on the host."""
+        layout = ann["layout"]
         rows = np.where(pos >= 0,
                         layout.pos_to_row[np.clip(pos, 0, None)], -1)
         if code is not None:          # subset-local -> shard-local rows
@@ -417,7 +440,7 @@ class SecureGallery:
         # average gallery rows rescored per query in this shard
         scored = float(layout.cell_lens[ids.clip(0)][ids >= 0].sum()
                        / max(ids.shape[0], 1))
-        return scores.cpu().numpy(), gids, scored
+        return gids, scored
 
     # -- matching entry ----------------------------------------------------------
     def match(self, raw_queries, k: int = 5, dtype: Optional[str] = None, *,
@@ -465,9 +488,9 @@ class SecureGallery:
         if mode == "ann":
             nprobe = max(1, min(nprobe, self._ann_n_cells))
             _, cell_ids = self._coarse_scan(q, nprobe, dtype)
-            ids = cell_ids.cpu().numpy()
             centroid_rows = self._ann_n_cells
         shard_scores, shard_gids = [], []
+        launched = []     # ANN: (shard, packed view, scores, positions)
         for s in range(self.n_shards):
             rows = None
             n_s = len(self._shard_ids[s])
@@ -478,15 +501,24 @@ class SecureGallery:
                 continue
             ks = min(k, n_s)
             if mode == "ann":
-                scores, gids, scored = self._match_shard_ann(
-                    s, q, cell_ids, ids, ks, dtype, code)
-                cell_rows += scored
+                launched.append((s, *self._rescore_shard_ann(
+                    s, q, cell_ids, ks, dtype, code)))
             else:
                 scores, idx = self._match_shard(s, q, ks, dtype, rows)
-                gids = self._shard_ids[s][idx]
+                shard_scores.append(scores)
+                shard_gids.append(self._shard_ids[s][idx])
                 cell_rows += n_s          # exact: the whole scope scored
-            shard_scores.append(scores)
-            shard_gids.append(gids)
+        if mode == "ann":
+            # every shard's rescore is in flight: the probe table and each
+            # shard's (scores, positions) come back in one transfer
+            ids, *host = _to_host([cell_ids] + [
+                t for _, _, scores, pos in launched for t in (scores, pos)])
+            for (s, ann, _, _), scores, pos in zip(launched, host[0::2],
+                                                   host[1::2]):
+                gids, scored = self._shard_ann_gids(s, ann, pos, ids, code)
+                cell_rows += scored
+                shard_scores.append(scores)
+                shard_gids.append(gids)
         all_s = np.concatenate(shard_scores, axis=1)       # (Q, sum ks)
         all_g = np.concatenate(shard_gids, axis=1)
         if len(shard_scores) > 1 or mode == "ann":         # top-k merge

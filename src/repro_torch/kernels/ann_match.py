@@ -29,6 +29,7 @@ assignments and layouts come out identical on the same rows.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from dataclasses import dataclass
 from typing import Optional
@@ -46,10 +47,40 @@ __all__ = ["NEG", "CellLayout", "kmeans_lite", "assign_cells",
            "build_cell_layout", "pack_cells", "pack_cells_quant",
            "centroid_topc_cuda", "cell_rescore_cuda", "cell_rescore_plain"]
 
-# launches of the CUDA rescore kernel (both passes count as one)
+# launches of the CUDA rescore kernel (a call counts one on either path),
+# and the plan (path, warps a block, rows a warp, passes, blocks) of the
+# last launch
 launches = 0
+last_plan = None
+
+FUSED_D = 128           # the one row width the fused path takes
+MAX_WARPS = 4           # its most warps a block (kMaxWarps in the .cu)
+CHUNK_ROWS = 32         # the two-pass path's rows a block (kRows in the .cu)
+_WARP_ROWS = {4: 16, 2: 16, 1: 32}   # rows a warp on the fused path, by the
+                                     # cells' itemsize (cr_warp_rows)
+_WIDE_WARPS_PER_SM = 32    # the most warps an SM the plan puts in flight
+                           # at once, each with all its rows
+_NARROW_WARPS_PER_SM = 16  # past that: one-warp blocks, about this many an
+_MIN_PASSES = 4            # SM, each making at least this many passes
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_FP32_Q_BF16_CELLS = 3  # the fused path rounds an fp32 query to bf16 itself
+_vp, _ci = ctypes.c_void_p, ctypes.c_int
+# the C interface of csrc/cell_rescore.cu: (argument types, result type)
+_SIGNATURES = {
+    "cr_rescore": ([_ci, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci,
+                    _ci, _vp, _vp, _vp, _vp, _vp], _ci),
+    "cr_rescore_fused": ([_ci, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci,
+                          _ci, _ci, _ci, _ci, _ci, _vp, _vp, _vp, _vp, _vp,
+                          _vp], _ci),
+    "cr_empty": ([_ci, _ci, _vp], _ci),
+    "cr_error_string": ([_ci], ctypes.c_char_p),
+    "cr_max_k": ([], _ci),
+    "cr_max_d": ([], _ci),
+    "cr_chunk_rows": ([], _ci),
+    "cr_max_warps": ([], _ci),
+    "cr_warp_rows": ([_ci], _ci),
+}
 _lib = None
 
 
@@ -62,17 +93,87 @@ def _library():
     global _lib
     if _lib is None:
         lib = _build.library("cell_rescore")
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.cr_rescore.argtypes = [ci, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                                   ci, vp, vp, vp, vp, vp]
-        lib.cr_rescore.restype = ci
-        lib.cr_error_string.argtypes = [ci]
-        lib.cr_error_string.restype = ctypes.c_char_p
-        for fn in (lib.cr_max_k, lib.cr_max_d, lib.cr_chunk_rows):
-            fn.argtypes, fn.restype = [], ci
-        assert (lib.cr_max_k(), lib.cr_max_d()) == (MAX_K, MAX_D)
+        for name, (args, res) in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = args, res
+        assert (lib.cr_max_k(), lib.cr_max_d(), lib.cr_chunk_rows(),
+                lib.cr_max_warps()) == (MAX_K, MAX_D, CHUNK_ROWS, MAX_WARPS)
+        assert all(lib.cr_warp_rows(code) == _WARP_ROWS[dt.itemsize]
+                   for dt, code in _DTYPE_CODE.items())
         _lib = lib
     return _lib
+
+
+def plan(Q: int, c: int, L: int, D: int, itemsize: int, aligned: bool,
+         sms: int):
+    """How a call is launched: (path, warps a block, rows a warp, passes a
+    block, blocks).
+
+    ``"fused"`` for rows of ``FUSED_D`` values in a 16-byte aligned array:
+    a warp takes 16 / 16 / 32 rows (fp32 / bf16 / int8) of one (query,
+    slot) pair's cell, with all their loads in flight at once.  While the
+    call's rows need at most ``_WIDE_WARPS_PER_SM`` warps an SM (``sms``),
+    they are all in flight together: blocks of ``MAX_WARPS`` warps (fewer
+    if the cell has fewer rows) over consecutive rows, one pass each.  A
+    larger call takes one-warp blocks, about ``_NARROW_WARPS_PER_SM`` an
+    SM, each making passes (at least ``_MIN_PASSES``) over the next rows
+    of its cell, so fewer blocks and lists carry the arrival and the
+    merge.  ``"two_pass"`` otherwise: the two-pass kernels, one warp a
+    block of ``CHUNK_ROWS`` rows."""
+    if D == FUSED_D and aligned:
+        rows = _WARP_ROWS[itemsize]
+        warps = MAX_WARPS
+        while warps > 1 and (warps // 2) * rows >= L:
+            warps //= 2
+        chunks = -(-L // (warps * rows))
+        if Q * c * chunks * warps <= _WIDE_WARPS_PER_SM * sms:
+            return "fused", warps, rows, 1, Q * c * chunks
+        groups = -(-L // rows)
+        fit = max(1, _NARROW_WARPS_PER_SM * sms // (Q * c))
+        passes = min(groups, max(_MIN_PASSES, -(-groups // fit)))
+        return "fused", 1, rows, passes, Q * c * -(-L // (passes * rows))
+    return "two_pass", 1, CHUNK_ROWS, 1, Q * c * -(-L // CHUNK_ROWS)
+
+
+_sms = {}
+_scratch = {}
+
+
+def _sm_count(dev) -> int:
+    if dev.index not in _sms:
+        _sms[dev.index] = torch.cuda.get_device_properties(dev) \
+            .multi_processor_count
+    return _sms[dev.index]
+
+
+def _scratch_for(dev, stream: int, n_part: int, Q: int):
+    """(partials, arrival counts, best words) for ``dev`` and ``stream``,
+    kept across calls and grown to hold ``n_part`` partial entries of 8
+    bytes and ``Q`` counts and words.  The counts and words are zeroed when
+    they are made; every launch that completes leaves them at 0."""
+    key = (dev.index, stream)
+    part, counts, best = _scratch.get(key, (None,) * 3)
+    if part is None or part.numel() < n_part:
+        part = torch.empty(1 << max(10, (n_part - 1).bit_length()),
+                           dtype=torch.int64, device=dev)
+    if counts is None or counts.numel() < Q:
+        n = 1 << max(6, (Q - 1).bit_length())
+        counts = torch.zeros(n, dtype=torch.int32, device=dev)
+        best = torch.zeros(n, dtype=torch.int64, device=dev)
+    _scratch[key] = (part, counts, best)
+    return part, counts, best
+
+
+def empty_launch(dev, blocks: int, warps: int) -> None:
+    """Launch the empty kernel on ``blocks`` blocks of ``warps`` warps (the
+    latency floor a call of that grid cannot beat; not counted in
+    ``launches``)."""
+    lib = _library()
+    err = lib.cr_empty(blocks, 32 * warps,
+                       torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError("cell_rescore: empty launch failed: "
+                           + lib.cr_error_string(err).decode())
 
 
 # ---------------------------------------------------------------------------
@@ -135,40 +236,51 @@ def cell_rescore_plain(q, cells, cell_ids, cell_lens, cell_scale=None, *,
 
 def _rescore_cuda(q, cells, cell_scale, ids, lens, k: int, L: int,
                   fuse_norm: bool):
-    global launches
+    global launches, last_plan
     Q, D = q.shape
     c = ids.shape[1]
-    want_q = torch.bfloat16 if cells.dtype == torch.bfloat16 \
-        else torch.float32
-    if cells.dtype not in _DTYPE_CODE or q.dtype != want_q:
-        raise ValueError(f"cell_rescore: no kernel for {q.dtype} queries on "
-                         f"{cells.dtype} cells")
     if D > MAX_D:
         raise ValueError(f"cell_rescore: D={D} above the kernel's {MAX_D}")
     if k > MAX_K:
         raise ValueError(f"cell_rescore: k={k} above the kernel's {MAX_K}")
-    if not all(t.is_contiguous() for t in (q, cells, ids, lens)) or (
-            cell_scale is not None and not cell_scale.is_contiguous()):
-        raise ValueError("cell_rescore: inputs must be contiguous")
     lib = _library()
     dev = q.device
-    chunks = -(-L // lib.cr_chunk_rows())
-    part_s = torch.empty((Q, c, chunks, k), dtype=torch.float32, device=dev)
-    part_i = torch.empty((Q, c, chunks, k), dtype=torch.int32, device=dev)
+    path, warps, rows, passes, blocks = plan(
+        Q, c, L, D, cells.element_size(), cells.data_ptr() % 16 == 0,
+        _sm_count(dev))
+    code = _DTYPE_CODE[cells.dtype]
+    if code == 1 and q.dtype == torch.float32:
+        if path == "fused":
+            code = _FP32_Q_BF16_CELLS
+        else:
+            q = q.to(torch.bfloat16)
     out_s = torch.empty((Q, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((Q, k), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
+    with (torch.cuda.device(dev) if dev.index != torch.cuda.current_device()
+          else contextlib.nullcontext()):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.cr_rescore(
-            _DTYPE_CODE[cells.dtype], q.data_ptr(), cells.data_ptr(),
-            cell_scale.data_ptr() if cell_scale is not None else None,
-            ids.data_ptr(), lens.data_ptr(), Q, c, D, L, k, int(fuse_norm),
-            part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(),
-            out_i.data_ptr(), stream)
+        part, counts, best = _scratch_for(dev, stream, blocks * k, Q)
+        args = (q.data_ptr(), cells.data_ptr(),
+                cell_scale.data_ptr() if cell_scale is not None else None,
+                ids.data_ptr(), lens.data_ptr(), Q, c, D, L, k,
+                int(fuse_norm))
+        if path == "fused":
+            err = lib.cr_rescore_fused(
+                code, *args, warps, passes, blocks // (Q * c),
+                part.data_ptr(), counts.data_ptr(), best.data_ptr(),
+                out_s.data_ptr(), out_i.data_ptr(), stream)
+            if err != 0:
+                counts.zero_()
+                best.zero_()
+        else:                 # partial scores, then keys, in the scratch
+            err = lib.cr_rescore(code, *args, part.data_ptr(),
+                                 part.data_ptr() + 4 * blocks * k,
+                                 out_s.data_ptr(), out_i.data_ptr(), stream)
     if err != 0:
         raise RuntimeError("cell_rescore: kernel launch failed: "
                            + lib.cr_error_string(err).decode())
     launches += 1
+    last_plan = (path, warps, rows, passes, blocks)
     return out_s, out_i
 
 
@@ -183,7 +295,9 @@ def cell_rescore_cuda(q: torch.Tensor, cells: torch.Tensor,
     (Q, c) probe table from the coarse scan (-1 = no probe); ``cell_lens``:
     (K,) valid rows per cell.  Returns (scores (Q, k) f32, padded positions
     (Q, k) i32) with (NEG, -1) in unfilled slots.  bf16 cells cast the
-    query to bf16; int8 keeps it in fp32."""
+    query to bf16 (the fused path's kernel does so itself); int8 keeps it
+    in fp32.  Inputs already of these dtypes and contiguous are used as
+    they are."""
     if q.dim() != 2 or cells.dim() != 2 or q.shape[1] != cells.shape[1]:
         raise ValueError(f"cell_rescore: bad shapes q{tuple(q.shape)} "
                          f"cells{tuple(cells.shape)}")
@@ -202,24 +316,34 @@ def cell_rescore_cuda(q: torch.Tensor, cells: torch.Tensor,
                 or tuple(cell_scale.shape) != (cells.shape[0],):
             raise ValueError("cell_rescore: the quantized path takes int8 "
                              "cells and fp32 scales (K*L,)")
+    elif cells.dtype != torch.bfloat16 and cells.dtype != torch.float32:
+        cells = cells.float()
+    dev = q.device
+    for t in (cells, cell_ids, cell_lens, cell_scale):
+        if t is not None and t.device != dev:
+            raise ValueError(f"cell_rescore: tensors on several devices "
+                             f"{dev} and {t.device}")
+    if cells.dtype == torch.bfloat16:
+        # on the card the fused kernel rounds an fp32 query to bf16 itself
+        if q.dtype != torch.bfloat16 and (dev.type != "cuda"
+                                          or q.dtype != torch.float32):
+            q = q.to(torch.bfloat16)
+    elif q.dtype != torch.float32:
         q = q.float()
-    elif cells.dtype == torch.bfloat16:
-        q = q.to(torch.bfloat16)
-    else:
-        q, cells = q.float(), cells.float()
-    ids, lens = cell_ids.to(torch.int32), cell_lens.to(torch.int32)
-    tensors = (q, cells, ids, lens) + ((cell_scale,) if cell_scale
-                                       is not None else ())
-    devs = {t.device for t in tensors}
-    if len(devs) != 1:
-        raise ValueError(f"cell_rescore: tensors on several devices {devs}")
-    if q.device.type == "cpu":
+    ids = cell_ids if cell_ids.dtype == torch.int32 \
+        else cell_ids.to(torch.int32)
+    lens = cell_lens if cell_lens.dtype == torch.int32 \
+        else cell_lens.to(torch.int32)
+    if dev.type == "cpu":
         return cell_rescore_plain(q, cells, ids, lens, cell_scale, k=k, L=L,
                                   fuse_norm=fuse_norm)
-    if q.device.type == "cuda":
-        return _rescore_cuda(q.contiguous(), cells.contiguous(),
-                             cell_scale, ids.contiguous(), lens.contiguous(),
-                             k, L, fuse_norm)
+    if dev.type == "cuda":
+        q, cells, ids, lens = (t if t.is_contiguous() else t.contiguous()
+                               for t in (q, cells, ids, lens))
+        if cell_scale is not None and not cell_scale.is_contiguous():
+            cell_scale = cell_scale.contiguous()
+        return _rescore_cuda(q, cells, cell_scale, ids, lens, k, L,
+                             fuse_norm)
     raise ValueError(f"cell_rescore: no kernel for device {q.device}")
 
 

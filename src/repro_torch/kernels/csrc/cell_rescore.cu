@@ -10,10 +10,11 @@
 // Contract kept from the TPU kernel:
 //   * scores are IEEE fp32 dots (FMAs on the CUDA cores: no TF32, no tensor
 //     cores); the query may be L2-normalized in the kernel, as
-//     q * 1/sqrt(max(sum q^2, 1e-18)); an int8 row's score is multiplied by
-//     the row's fp32 scale after the dot;
+//     q * 1/sqrt(max(sum q^2, 1e-18)); a query for bf16 cells is rounded to
+//     bf16 first; an int8 row's score is multiplied by the row's fp32 scale
+//     after the dot;
 //   * rows at or past cell_lens[cid], and every row of a probe with cid = -1,
-//     never enter the top-k;
+//     are never loaded and never enter the top-k;
 //   * the output is (Q, k) scores and padded positions cid * L + row, with
 //     (NEG, -1) in slots that no valid row fills;
 //   * ties: the TPU kernel merges its carried top-k ahead of each new cell
@@ -25,30 +26,65 @@
 // What bounds it on an H100: the bytes of the probed cells' valid rows.  At
 // the serving shape (one query, 8 probes of cells of a few hundred rows)
 // that is about a megabyte per shard, well under a microsecond at 3.35 TB/s,
-// so the kernel is bound by launch and memory latency, not by bandwidth.
-// The design spreads the probed rows over many blocks, so the latency of a
-// cell's rows is paid once in parallel, and reads only valid rows: the probe
-// table and cell_lens drive the pointer arithmetic, so pad rows and cid = -1
+// so the kernel is bound by launch and memory latency, not by bandwidth:
+// its time is the chain of dependent steps a call takes (the probe table,
+// then the cell's length, then the rows, then the merge).  The probe table
+// and cell_lens drive the pointer arithmetic, so pad rows and cid = -1
 // probes are never touched (the TPU kernel DMAs the whole (L, D) tile and
-// clamps cid = -1 to tile 0).
+// clamps cid = -1 to tile 0).  Two paths, chosen by the wrapper
+// (`ann_match.plan`):
 //
-// Design:
-//   pass 1, `rescore_partial_kernel`: grid (Q*c (query, slot) pairs, chunks of
-//     kRows rows of the cell); one warp a block.  The warp stages its query in
-//     shared memory (fp32, normalized if asked), then scores the chunk's
-//     valid rows kBatch at a time: each lane reads one 16-byte piece of each
-//     row (rows of at most 512 bytes, 16-byte aligned) or single elements
-//     otherwise, and a butterfly shuffle sums each row's dot on every lane.
-//     The warp keeps the chunk's top-k in a WarpTopK list and writes it as a
-//     (Q, c*chunks, k) partial.
-//   pass 2, `rescore_merge_kernel`: one warp per query merges the c*chunks*k
-//     partials with the same list and stores scores and padded positions.
+// fused path (D = 128, 16-byte aligned cells: every serving call), one
+//   launch of `rescore_fused_kernel`.  Grid: Q * c (query, slot) pairs x
+//   `chunks` blocks of W warps, each block making `passes` passes (W,
+//   passes and chunks from `plan`: 4-warp one-pass blocks while every row
+//   of the call fits in flight at once, else 1-warp blocks making passes).
+//   In a pass, warp w takes the next 16 / 16 / 32 rows (fp32 / bf16 /
+//   int8) of its pair's cell: 8 lanes a row, each with 16-byte loads of
+//   every 8th chunk of the row (4 / 2 / 1 chunks a lane), so every lane
+//   loads and all the warp's loads of the pass are in flight together.
+//   Each lane loads its 16 query values (rounded to bf16 for bf16 cells)
+//   into registers and normalizes them while the probe table and the
+//   cell's length are looked up; no shared-memory stage.  The loads are
+//   predicated on row < cell_lens[cid], and a block whose rows lie past
+//   the cell's valid rows ends its passes.  The dots widen each chunk in
+//   registers (`widen`) and are summed over the row's 8 lanes by the
+//   transposing reduction (`row_sums`).  Results are (score, key) words
+//   whose unsigned order is the lists' (`pack`).
+//   k = 1: each warp's best word, then the block's, goes into the query's
+//     word with one atomicMax, and the block counts its arrival on the
+//     query's count; the last of the query's c * chunks blocks takes the
+//     word (leaving 0), leaves the count at 0 and stores the result.
+//   k > 1: each pass ranks the block's candidates and its list so far by
+//     counts in shared memory into the next list; the block stores its
+//     list as its partial and arrives; the last block ranks the query's
+//     partials (only those at or above a bound on the k-th) and stores
+//     the result.
+//   Words and lists order by (score, key) with unique keys, so the result
+//   depends neither on block order nor on the grid.
+//
+// two-pass path (every other call: D != 128, a misaligned array),
+//   `rescore_partial_kernel` + `rescore_merge_kernel`:
+//   pass 1: grid (Q*c (query, slot) pairs, chunks of kRows rows of the cell);
+//     one warp a block.  The warp stages its query in shared memory (fp32,
+//     normalized if asked), then scores the chunk's valid rows kBatch at a
+//     time: each lane reads one 16-byte piece of each row (rows of at most
+//     512 bytes, 16-byte aligned) or single elements otherwise, and a
+//     butterfly shuffle sums each row's dot on every lane.  The warp keeps
+//     the chunk's top-k in a WarpTopK list and writes it as a (Q, c*chunks,
+//     k) partial.
+//   pass 2: one warp per query merges the c*chunks*k partials with the same
+//     list and stores scores and padded positions.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-#include "match_common.cuh"  // kMaxK, kNeg, to_f32, WarpTopK, merge_partials
+#include <type_traits>
+
+#include "match_common.cuh"  // kMaxK, kNeg, to_f32, the 8-lanes-a-row layout
+                              // (RowGroup, widen, row_sums), WarpTopK,
+                              // merge_partials
 
 namespace {
 
@@ -185,6 +221,359 @@ int launch(const void* q, const void* cells, const float* scale,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The fused path
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxWarps = 4;      // warps a block of the fused path, at most
+constexpr int kFp32Groups = 2;    // groups of rows a warp in fp32: 16 rows,
+                                  // as bf16's one group
+
+// A query value as the kernel scores it against TG cells: a query for bf16
+// cells is rounded to bf16 first (one that is bf16 already stays as it is).
+template <typename TG, typename TQ>
+__device__ __forceinline__ float query_value(TQ x) {
+  if constexpr (std::is_same<TG, __nv_bfloat16>::value &&
+                std::is_same<TQ, float>::value)
+    return __bfloat162float(__float2bfloat16_rn(x));
+  else
+    return to_f32(x);
+}
+
+// (score, key) as one 64-bit word whose unsigned order is the lists' order:
+// the score's bits made monotonic (-0 taken as +0, as the lists compare it)
+// above 2^32 - 1 - key.  0 is no entry.
+__device__ __forceinline__ unsigned long long pack(float s, int key) {
+  const unsigned b = __float_as_uint(s + 0.0f);
+  const unsigned hi = (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+  return ((unsigned long long)hi << 32) | (0xffffffffu - (unsigned)key);
+}
+__device__ __forceinline__ float packed_score(unsigned long long w) {
+  const unsigned hi = (unsigned)(w >> 32);
+  return __uint_as_float((hi & 0x80000000u) ? (hi & 0x7fffffffu) : ~hi);
+}
+__device__ __forceinline__ int packed_key(unsigned long long w) {
+  return w == 0ull ? -1 : (int)(0xffffffffu - (unsigned)w);
+}
+
+// How many of the n words at p (shared memory) rank above w: a count with
+// no early exit, 8 independent loads in flight.
+__device__ __forceinline__ int count_above(const unsigned long long* p, int n,
+                                           unsigned long long w) {
+  int a[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  int f = 0;
+  for (; f + 8 <= n; f += 8) {
+#pragma unroll
+    for (int u = 0; u < 8; ++u) a[u] += p[f + u] > w;
+  }
+  for (; f < n; ++f) a[0] += p[f] > w;
+  return ((a[0] + a[1]) + (a[2] + a[3])) + ((a[4] + a[5]) + (a[6] + a[7]));
+}
+
+// The same over words in global memory that other blocks wrote.
+__device__ __forceinline__ int count_above_global(
+    const unsigned long long* p, int n, unsigned long long w) {
+  int a[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  int f = 0;
+  for (; f + 8 <= n; f += 8) {
+#pragma unroll
+    for (int u = 0; u < 8; ++u) a[u] += __ldcg(p + f + u) > w;
+  }
+  for (; f < n; ++f) a[0] += __ldcg(p + f) > w;
+  return ((a[0] + a[1]) + (a[2] + a[3])) + ((a[4] + a[5]) + (a[6] + a[7]));
+}
+
+// NG groups of rows a warp, all loaded before any is scored; `passes`
+// passes of the block over consecutive rows; K1: k = 1.
+template <typename TQ, typename TG, int NG, bool K1>
+__global__ void __launch_bounds__(kMaxWarps * 32, 1)
+rescore_fused_kernel(const TQ* __restrict__ q, const TG* __restrict__ cells,
+                     const float* __restrict__ scale,
+                     const int* __restrict__ ids, const int* __restrict__ lens,
+                     int c, int L, int k, int fuse_norm, int chunks,
+                     int passes, unsigned long long* __restrict__ part,
+                     unsigned* __restrict__ arrivals,
+                     unsigned long long* __restrict__ best,
+                     float* __restrict__ out_s, int* __restrict__ out_i) {
+  using G = RowGroup<TG>;
+  constexpr int kWarpRows = NG * G::kRows;
+  constexpr int kPool = 512;
+  static_assert(kMaxWarps * kWarpRows <= kPool, "a pass fits the pool");
+  __shared__ unsigned long long pool[kPool];   // a pass's candidates, then
+                                               // the last block's partials
+  __shared__ unsigned long long run[2][kMaxK]; // k > 1: the block's list so
+                                               // far, and the next one
+  __shared__ unsigned long long wbest[kMaxWarps];
+  __shared__ unsigned long long surv[kPool];   // the last block's words
+                                               // that can be in the top k
+  __shared__ int slot_cid[32];                 // its probe table, count of
+  __shared__ int n_filled, n_surv;             // words and of those words
+  __shared__ bool last;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int W = blockDim.x >> 5;
+  const int j = lane % kLPR;                // which 8th of the row's chunks
+  const int p = lane / kLPR;                // which row of a step
+  const int pair = blockIdx.x / chunks;     // qi * c + slot
+  const int chunk = blockIdx.x - pair * chunks;
+  const int qi = pair / c, slot = pair - qi * c;
+  const int blocks = c * chunks;            // the query's blocks
+  const int n_pool = W * kWarpRows;         // rows a block scores a pass
+  const int b0 = chunk * passes * n_pool;   // the block's first row
+
+  // the probe, the query's probe table (lane l holds slot l, which the
+  // last block needs) and this lane's query values are loaded together
+  const int cid = ids[pair];
+  const int lane_cid = lane < c ? ids[(size_t)qi * c + lane] : -1;
+  float qr[G::kQE];
+#pragma unroll
+  for (int cc = 0; cc < G::kC; ++cc)
+#pragma unroll
+    for (int e = 0; e < G::kEPC; ++e)
+      qr[cc * G::kEPC + e] = query_value<TG>(
+          q[(size_t)qi * kRowD + (j + kLPR * cc) * G::kEPC + e]);
+  const int n_valid = cid < 0 ? 0 : lens[cid];
+  if (fuse_norm) {                          // the same sum in every lane
+    float ss = 0.0f;
+#pragma unroll
+    for (int e = 0; e < G::kQE; ++e) ss = fmaf(qr[e], qr[e], ss);
+#pragma unroll
+    for (int o = 1; o < kLPR; o <<= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+    const float inv = 1.0f / sqrtf(fmaxf(ss, 1e-18f));
+#pragma unroll
+    for (int e = 0; e < G::kQE; ++e) qr[e] *= inv;
+  }
+
+  // Lane (j, p) ends each pass with the dot of row w0 + g * kRows + own of
+  // each of its warp's groups g, and is the one lane of its replicas that
+  // offers it if `owner`.
+  const int own = ((j >> (3 - G::kTLevels)) * kStepRows) + p;
+  const bool owner = (j & ((1 << (3 - G::kTLevels)) - 1)) == 0;
+  const uint4* g4 = reinterpret_cast<const uint4*>(cells) +
+                    (size_t)(cid < 0 ? 0 : cid) * L * G::kRowChunks;
+  unsigned long long mine = 0ull;           // K1: this lane's best so far
+  int cur = 0;                              // k > 1: run[cur] is the list
+  for (int t = threadIdx.x; !K1 && t < k; t += blockDim.x) run[0][t] = 0ull;
+  if (!K1 && threadIdx.x == 0) n_filled = n_surv = 0;
+  for (int pass = 0; pass < passes; ++pass) {
+    if (b0 + pass * n_pool >= n_valid) break;   // block-uniform: done
+    const int w0 = b0 + pass * n_pool + warp * kWarpRows;
+    float sn[NG];
+#pragma unroll
+    for (int g = 0; g < NG; ++g) sn[g] = kNeg;
+    if (w0 < n_valid) {                     // warp-uniform: every load in
+      uint4 v[NG][G::kV][G::kC];            // flight, then the dots
+      float sc[NG];
+#pragma unroll
+      for (int g = 0; g < NG; ++g) {
+#pragma unroll
+        for (int s = 0; s < G::kV; ++s) {
+          const int row = w0 + g * G::kRows + s * kStepRows + p;
+#pragma unroll
+          for (int cc = 0; cc < G::kC; ++cc)
+            v[g][s][cc] = row < n_valid
+                ? __ldg(g4 + (size_t)row * G::kRowChunks + j + kLPR * cc)
+                : make_uint4(0u, 0u, 0u, 0u);
+        }
+        const int row = w0 + g * G::kRows + own;
+        sc[g] = 1.0f;
+        if constexpr (sizeof(TG) == 1)
+          sc[g] = row < n_valid ? __ldg(scale + (size_t)cid * L + row) : 0.0f;
+      }
+#pragma unroll
+      for (int g = 0; g < NG; ++g) {
+        float acc[G::kV];
+#pragma unroll
+        for (int s = 0; s < G::kV; ++s) acc[s] = 0.0f;
+#pragma unroll
+        for (int s = 0; s < G::kV; ++s)
+#pragma unroll
+          for (int cc = 0; cc < G::kC; ++cc) {
+            float x[G::kEPC];
+            widen(v[g][s][cc], x);
+#pragma unroll
+            for (int e = 0; e < G::kEPC; ++e)
+              acc[s] = fmaf(qr[cc * G::kEPC + e], x[e], acc[s]);
+          }
+        sn[g] = row_sums<G::kV>(acc, lane);
+        if constexpr (sizeof(TG) == 1) sn[g] *= sc[g];  // int8: scale after the dot
+      }
+    }
+    if constexpr (K1) {
+#pragma unroll
+      for (int g = 0; g < NG; ++g) {
+        const int row = w0 + g * G::kRows + own;
+        if (owner && row < n_valid)
+          mine = max(mine, pack(sn[g], slot * L + row));
+      }
+    } else {
+      // the pass's candidates and the list so far, as words, through
+      // shared memory: each that fewer than k of them rank before goes to
+      // that place of the next list (a candidate that does not beat the
+      // list's k-th cannot); each rank is a count over all of them
+#pragma unroll
+      for (int g = 0; g < NG; ++g)
+        if (owner) {
+          const int row = w0 + g * G::kRows + own;
+          pool[(warp * NG + g) * G::kRows + own] =
+              row < n_valid ? pack(sn[g], slot * L + row) : 0ull;
+        }
+      for (int t = threadIdx.x; t < k; t += blockDim.x) run[cur ^ 1][t] = 0ull;
+      __syncthreads();
+      const unsigned long long* rl = run[cur];
+      const unsigned long long kth = rl[k - 1];
+      for (int e = threadIdx.x; e < n_pool + k; e += blockDim.x) {
+        const unsigned long long w = e < n_pool ? pool[e] : rl[e - n_pool];
+        if (w == 0ull || w < kth) continue;
+        const int rank = count_above(pool, n_pool, w) + count_above(rl, k, w);
+        if (rank < k) run[cur ^ 1][rank] = w;
+      }
+      __syncthreads();
+      cur ^= 1;
+    }
+  }
+
+  if constexpr (K1) {
+    // k = 1: the warp's best word, the block's best of those into the
+    // query's word with one atomicMax, then the arrival; the last block
+    // takes the word (leaving 0), and the count back to 0
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      mine = max(mine, __shfl_xor_sync(0xffffffffu, mine, o));
+    if (lane == 0) wbest[warp] = mine;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      unsigned long long b = 0ull;
+      for (int w = 0; w < W; ++w) b = max(b, wbest[w]);
+      if (b != 0ull) atomicMax(best + qi, b);
+      __threadfence();                      // the word, then arrive
+      last = atomicAdd(arrivals + qi, 1u) == (unsigned)blocks - 1;
+      if (last) {
+        __threadfence();
+        wbest[0] = atomicExch(best + qi, 0ull);
+        arrivals[qi] = 0u;
+      }
+    }
+    __syncthreads();
+    if (!last || warp != 0) return;
+    const unsigned long long b = wbest[0];
+    const int key = packed_key(b);
+    const int s = key >= 0 ? key / L : 0;
+    int id = __shfl_sync(0xffffffffu, lane_cid, s & 31);
+    if (lane == 0) {
+      if (s >= 32) id = ids[(size_t)qi * c + s];
+      out_s[qi] = key >= 0 ? packed_score(b) : kNeg;
+      out_i[qi] = key >= 0 ? id * L + key % L : -1;
+    }
+    return;
+  } else {
+    // k > 1: the block's list is its partial; then the arrival
+    __syncthreads();
+    for (int t = threadIdx.x; t < k; t += blockDim.x)
+      part[(size_t)blockIdx.x * k + t] = run[cur][t];
+    __threadfence();                        // this block's partial, then arrive
+    __syncthreads();
+    if (threadIdx.x == 0)
+      last = atomicAdd(arrivals + qi, 1u) == (unsigned)blocks - 1;
+    __syncthreads();
+    if (!last) return;
+
+    // the last block of the query: its partials are the query's blocks'
+    // lists, each sorted.  A list whose k places are filled has k words
+    // at or above its k-th, so the query's k-th is at or above the best
+    // of those (tau), and only words at or above tau are ranked, each by
+    // a count over all the words; one of rank below k is stored there,
+    // its key turned into ids[qi, slot] * L + row, and sentinels fill the
+    // places past the query's words.  The words go through shared memory
+    // if they fit (as they do unless k or the blocks a query are large).
+    __threadfence();
+    const int total = blocks * k;
+    const unsigned long long* pw = part + (size_t)qi * total;
+    const bool staged = total <= kPool;     // block-uniform
+    int filled = 0;
+    unsigned long long tau = 0ull;
+    for (int e0 = threadIdx.x; e0 < total; e0 += 8 * blockDim.x) {
+      unsigned long long w[8];              // 8 loads in flight a thread
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int e = e0 + u * blockDim.x;
+        w[u] = e < total ? __ldcg(pw + e) : 0ull;
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int e = e0 + u * blockDim.x;
+        filled += w[u] != 0ull;
+        if (e % k == k - 1) tau = max(tau, w[u]);
+        if (staged && e < total) pool[e] = w[u];
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      tau = max(tau, __shfl_xor_sync(0xffffffffu, tau, o));
+    if (lane == 0) wbest[warp] = tau;
+    if (warp == 0) slot_cid[lane] = lane_cid;
+    if (filled) atomicAdd(&n_filled, filled);
+    __syncthreads();
+    for (int v = 0; v < W; ++v) tau = max(tau, wbest[v]);
+    // the words at or above tau, gathered (they are few), then one count
+    // each over all the words
+    for (int e = threadIdx.x; e < total; e += blockDim.x) {
+      const unsigned long long w = staged ? pool[e] : __ldcg(pw + e);
+      if (w != 0ull && w >= tau) {
+        const int at = atomicAdd(&n_surv, 1);
+        if (at < kPool) surv[at] = w;
+      }
+    }
+    __syncthreads();
+    const int n = n_surv;                   // block-uniform
+    for (int e = threadIdx.x; e < (n <= kPool ? n : total);
+         e += blockDim.x) {
+      const unsigned long long w =
+          n <= kPool ? surv[e] : staged ? pool[e] : __ldcg(pw + e);
+      if (w == 0ull || w < tau) continue;
+      const int rank = staged ? count_above(pool, total, w)
+                              : count_above_global(pw, total, w);
+      if (rank < k) {
+        const int key = packed_key(w);
+        const int sl = key / L;
+        const int id = sl < 32 ? slot_cid[sl] : ids[(size_t)qi * c + sl];
+        out_s[(size_t)qi * k + rank] = packed_score(w);
+        out_i[(size_t)qi * k + rank] = id * L + key % L;
+      }
+    }
+    for (int t = n_filled + threadIdx.x; t < k; t += blockDim.x) {
+      out_s[(size_t)qi * k + t] = kNeg;
+      out_i[(size_t)qi * k + t] = -1;
+    }
+    if (threadIdx.x == 0) arrivals[qi] = 0u;
+  }
+}
+
+// The fused kernel for TQ / TG with NG groups of rows a warp.
+template <typename TQ, typename TG, int NG>
+int launch_fused(const void* q, const void* cells, const float* scale,
+                 const int* ids, const int* lens, int Q, int c, int L, int k,
+                 int fuse_norm, int warps, int passes, int chunks,
+                 unsigned long long* part, unsigned* arrivals,
+                 unsigned long long* best, float* out_s, int* out_i,
+                 cudaStream_t stream) {
+  const int rows = passes * warps * NG * RowGroup<TG>::kRows;  // a block's
+  if (passes < 1 || chunks != (L + rows - 1) / rows ||
+      (long long)Q * c * chunks > 0x7fffffffLL ||
+      (long long)c * chunks * k > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  auto kern = k == 1 ? &rescore_fused_kernel<TQ, TG, NG, true>
+                     : &rescore_fused_kernel<TQ, TG, NG, false>;
+  kern<<<Q * c * chunks, warps * 32, 0, stream>>>(
+      static_cast<const TQ*>(q), static_cast<const TG*>(cells), scale, ids,
+      lens, c, L, k, fuse_norm, chunks, passes, part, arrivals, best, out_s,
+      out_i);
+  return (int)cudaGetLastError();
+}
+
+// The latency floor: a kernel that does nothing, on a grid of one's choice.
+__global__ void empty_kernel() {}
+
 }  // namespace
 
 extern "C" {
@@ -227,6 +616,74 @@ int cr_rescore(int dtype, const void* q, const void* cells, const void* scale,
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+int cr_max_warps() { return kMaxWarps; }
+int cr_warp_rows(int dtype) {
+  switch (dtype) {
+    case 0: return kFp32Groups * RowGroup<float>::kRows;
+    case 1: case 3: return RowGroup<__nv_bfloat16>::kRows;
+    case 2: return RowGroup<int8_t>::kRows;
+    default: return 0;
+  }
+}
+
+// The fused path: D = kRowD (128) and cells 16-byte aligned; one launch.
+// dtype as cr_rescore's, plus 3 = fp32 query with bf16 cells (the kernel
+// rounds the query to bf16).  A block of `warps` (1, 2 or 4) warps
+// makes `passes` passes over cr_warp_rows(dtype) rows a warp, and each
+// (query, slot) pair has `chunks` = ceil(L / (passes * warps * those))
+// blocks.  `part` holds (Q, c, chunks, k) 64-bit words (k > 1); `arrivals` holds
+// Q unsigned ints and `best` Q unsigned 64-bit words (k = 1), all 0 before
+// the launch and left at 0 by it (the wrapper keeps them for each device
+// and stream, and zeroes them after an error).  Returns a cudaError_t
+// code: 0 when the launch was accepted.
+int cr_rescore_fused(int dtype, const void* q, const void* cells,
+                     const void* scale, const void* ids, const void* lens,
+                     int Q, int c, int D, int L, int k, int fuse_norm,
+                     int warps, int passes, int chunks, void* part,
+                     void* arrivals, void* best, void* out_s, void* out_i,
+                     void* stream) {
+  if (k < 1 || k > kMaxK || Q < 1 || c < 1 || D != kRowD || L < 1 ||
+      (warps != 1 && warps != 2 && warps != kMaxWarps) ||
+      (long long)c * L > 0x7fffffffLL ||
+      reinterpret_cast<uintptr_t>(cells) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* pid = static_cast<const int*>(ids);
+  const int* pl = static_cast<const int*>(lens);
+  unsigned long long* pw = static_cast<unsigned long long*>(part);
+  unsigned* arr = static_cast<unsigned*>(arrivals);
+  unsigned long long* pb = static_cast<unsigned long long*>(best);
+  float* os = static_cast<float*>(out_s);
+  int* oi = static_cast<int*>(out_i);
+  switch (dtype) {
+    case 0:
+      return launch_fused<float, float, kFp32Groups>(
+          q, cells, nullptr, pid, pl, Q, c, L, k, fuse_norm, warps, passes,
+          chunks, pw, arr, pb, os, oi, st);
+    case 1:
+      return launch_fused<__nv_bfloat16, __nv_bfloat16, 1>(
+          q, cells, nullptr, pid, pl, Q, c, L, k, fuse_norm, warps, passes,
+          chunks, pw, arr, pb, os, oi, st);
+    case 2:
+      return launch_fused<float, int8_t, 1>(
+          q, cells, static_cast<const float*>(scale), pid, pl, Q, c, L, k,
+          fuse_norm, warps, passes, chunks, pw, arr, pb, os, oi, st);
+    case 3:
+      return launch_fused<float, __nv_bfloat16, 1>(
+          q, cells, nullptr, pid, pl, Q, c, L, k, fuse_norm, warps, passes,
+          chunks, pw, arr, pb, os, oi, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// An empty kernel on `blocks` blocks of `threads` threads: the time of a
+// launch that does no work.  Returns a cudaError_t code.
+int cr_empty(int blocks, int threads, void* stream) {
+  empty_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>();
+  return (int)cudaGetLastError();
 }
 
 const char* cr_error_string(int code) {

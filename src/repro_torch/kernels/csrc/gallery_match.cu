@@ -69,7 +69,9 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-#include "match_common.cuh"  // kMaxK, kNeg, to_f32, WarpTopK, merge_partials
+#include "match_common.cuh"  // kMaxK, kNeg, to_f32, the 8-lanes-a-row layout
+                              // (RowGroup, widen, row_sums), WarpTopK,
+                              // merge_partials
 
 namespace {
 
@@ -261,76 +263,9 @@ int launch(const void* q, const void* g, const float* scale, int Q, int N,
 
 constexpr int kSmallQ = 8;        // the most queries the path takes (Q_S)
 constexpr int kSmallD = 128;      // the row width it takes
+static_assert(kSmallD == kRowD, "the row layout is for 128-wide rows");
 constexpr int kSW = 8;            // warps a block
-constexpr int kLPR = 8;           // lanes reading one row
-constexpr int kStepRows = 32 / kLPR;   // rows a warp reads in one step
-constexpr int kLoads = 8;         // 16-byte loads a lane in flight per group
 static_assert(kSmallQ <= kSW, "a block merges one query per warp");
-
-// The lane layout for a 128-wide row of TG values.
-template <typename TG>
-struct Small {
-  static constexpr int kEPC = 16 / (int)sizeof(TG);      // values a chunk
-  static constexpr int kRowChunks = kSmallD / kEPC;      // 32 / 16 / 8
-  static constexpr int kC = kRowChunks / kLPR;           // chunks a lane a row
-  static constexpr int kV = kLoads / kC;                 // steps a group
-  static constexpr int kRows = kV * kStepRows;           // rows a group
-  static constexpr int kQE = kC * kEPC;                  // query values a lane
-  static constexpr int kTLevels = kV == 8 ? 3 : kV == 4 ? 2 : kV == 2 ? 1 : 0;
-};
-
-// Widen one 16-byte chunk to fp32 in registers, exactly.
-__device__ __forceinline__ void widen(const uint4& v, float (&x)[4]) {
-  x[0] = __uint_as_float(v.x); x[1] = __uint_as_float(v.y);
-  x[2] = __uint_as_float(v.z); x[3] = __uint_as_float(v.w);
-}
-__device__ __forceinline__ void widen(const uint4& v, float (&x)[8]) {
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {            // bf16 is the top half of an fp32
-    x[2 * i] = __uint_as_float(w[i] << 16);
-    x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-__device__ __forceinline__ void widen(const uint4& v, float (&x)[16]) {
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    // b ^ 0x80 is b + 128 as an unsigned byte; as the low mantissa byte of
-    // 2^23 (0x4B000000) it is the float 2^23 + b + 128
-    const uint32_t u = w[i] ^ 0x80808080u;
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-      x[4 * i + b] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + b))
-                     - 8388736.0f;
-  }
-}
-
-// Sum each of the V partial dots a lane holds over the 8 lanes of its row
-// (lane bits 0-2): each transposing level sends half of the values to the
-// partner lane and keeps the other half, then the remaining levels are a
-// butterfly.  Afterwards value s of the group lives in lanes whose bits
-// 2, 1, 0 read s (top bits first), replicated over the low 3 - log2(V) bits.
-template <int V>
-__device__ __forceinline__ float row_sums(float (&a)[V], int lane) {
-#pragma unroll
-  for (int lvl = 0; lvl < 3; ++lvl) {
-    const int o = (kLPR / 2) >> lvl;
-    const int h = V >> (lvl + 1);
-    if (h >= 1) {
-      const bool hi = lane & o;
-#pragma unroll
-      for (int i = 0; i < h; ++i) {
-        const float keep = hi ? a[i + h] : a[i];
-        const float send = hi ? a[i] : a[i + h];
-        a[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
-      }
-    } else {
-      a[0] += __shfl_xor_sync(0xffffffffu, a[0], o);
-    }
-  }
-  return a[0];
-}
 
 template <typename TQ, typename TG, int NQ>
 __global__ void __launch_bounds__(kSW * 32, NQ <= 2 ? 2 : 1)
@@ -339,7 +274,7 @@ match_small_kernel(const TQ* __restrict__ q, const TG* __restrict__ g,
                    int fuse_norm, float* __restrict__ part_s,
                    int* __restrict__ part_i, unsigned* __restrict__ arrivals,
                    float* __restrict__ out_s, int* __restrict__ out_i) {
-  using L = Small<TG>;
+  using L = RowGroup<TG>;
   // load the next group while scoring this one, except where the second
   // set of registers would cost int8 its occupancy (measured slower, and
   // spilling at 8 queries)

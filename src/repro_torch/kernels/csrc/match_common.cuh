@@ -1,5 +1,13 @@
 // What the port's match kernels (gallery_match.cu, cell_rescore.cu) share:
-// widening of the storage types to fp32, and warp-held top-k lists.
+// widening of the storage types to fp32, the 8-lanes-a-row dot reduction,
+// and warp-held top-k lists.
+//
+// Rows of 128 values read by 8 lanes: lane j of a row loads its 16-byte
+// chunks j, j + 8, ... (4 in fp32, 2 in bf16, 1 in int8), widens them to
+// fp32 in registers (`widen`, exact) and keeps one partial dot per row;
+// `row_sums` then adds the 8 partial dots of each row.  Every row's dot is
+// summed in the same order wherever the row sits in its group, so equal
+// rows score equal.
 //
 // A list is ordered by score descending, then by a non-negative int key
 // ascending (a gallery index, or the rescore's probe-slot order key), so ties
@@ -16,10 +24,82 @@ namespace {
 
 constexpr int kMaxK = 64;                  // two list entries per lane
 constexpr float kNeg = -3.0e38f;           // the TPU kernels' NEG sentinel
+constexpr int kLPR = 8;                    // lanes reading one 128-wide row
+constexpr int kRowD = 128;                 // the row width of that layout
+constexpr int kStepRows = 32 / kLPR;       // rows a warp reads in one step
+constexpr int kLoads = 8;                  // 16-byte loads a lane has in
+                                           // flight for one group of rows
+
+// The lane layout of a group of 128-wide rows of TG values: kLoads 16-byte
+// loads a lane, kV steps of kStepRows rows, kRows = 8 / 16 / 32 rows.
+template <typename TG>
+struct RowGroup {
+  static constexpr int kEPC = 16 / (int)sizeof(TG);      // values a chunk
+  static constexpr int kRowChunks = kRowD / kEPC;        // 32 / 16 / 8
+  static constexpr int kC = kRowChunks / kLPR;           // chunks a lane a row
+  static constexpr int kV = kLoads / kC;                 // steps a group
+  static constexpr int kRows = kV * kStepRows;           // rows a group
+  static constexpr int kQE = kC * kEPC;                  // query values a lane
+  static constexpr int kTLevels = kV == 8 ? 3 : kV == 4 ? 2 : kV == 2 ? 1 : 0;
+};
+
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
+
+// Widen one 16-byte chunk to fp32 in registers, exactly.
+__device__ __forceinline__ void widen(const uint4& v, float (&x)[4]) {
+  x[0] = __uint_as_float(v.x); x[1] = __uint_as_float(v.y);
+  x[2] = __uint_as_float(v.z); x[3] = __uint_as_float(v.w);
+}
+__device__ __forceinline__ void widen(const uint4& v, float (&x)[8]) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {            // bf16 is the top half of an fp32
+    x[2 * i] = __uint_as_float(w[i] << 16);
+    x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void widen(const uint4& v, float (&x)[16]) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    // b ^ 0x80 is b + 128 as an unsigned byte; as the low mantissa byte of
+    // 2^23 (0x4B000000) it is the float 2^23 + b + 128
+    const uint32_t u = w[i] ^ 0x80808080u;
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      x[4 * i + b] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + b))
+                     - 8388736.0f;
+  }
+}
+
+// Sum each of the V partial dots a lane holds over the 8 lanes of its row
+// (lane bits 0-2): each transposing level sends half of the values to the
+// partner lane and keeps the other half, then the remaining levels are a
+// butterfly.  Afterwards value s of the group lives in lanes whose bits
+// 2, 1, 0 read s (top bits first), replicated over the low 3 - log2(V) bits.
+template <int V>
+__device__ __forceinline__ float row_sums(float (&a)[V], int lane) {
+#pragma unroll
+  for (int lvl = 0; lvl < 3; ++lvl) {
+    const int o = (kLPR / 2) >> lvl;
+    const int h = V >> (lvl + 1);
+    if (h >= 1) {
+      const bool hi = lane & o;
+#pragma unroll
+      for (int i = 0; i < h; ++i) {
+        const float keep = hi ? a[i + h] : a[i];
+        const float send = hi ? a[i] : a[i + h];
+        a[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+      }
+    } else {
+      a[0] += __shfl_xor_sync(0xffffffffu, a[0], o);
+    }
+  }
+  return a[0];
+}
 
 // Does (s1, i1) rank before (s2, i2)?
 __device__ __forceinline__ bool better(float s1, int i1, float s2, int i2) {
