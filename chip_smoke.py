@@ -46,15 +46,17 @@ Phases, each printing its lines; any failure exits non-zero:
    shapes (GQA, MQA, bidirectional, window 128, S = 384, 192/128 head
    dims, D = 80, Sq < Sk), the kernel's edges (D = 240 with window 1024,
    192/128 at S = 1024, Sq = Sk = 1000 as strided views), every (D, Dv)
-   pair the kernel is instantiated for at S = 136, and the two
-   serving shapes, (8, 32, 2048, 80) MHA and (8, 32/4, 2048, 64) GQA,
-   these as the model's strided (B, S, H, D) views and run twice, the two
-   outputs bit-identical; bf16 outputs are held element by element,
-   relative to one bf16 ulp and the row's RMS, and every check must also
-   reject a planted 5 % error on the later positions; then the kernel's,
-   the plain version's and ``F.scaled_dot_product_attention``'s device
-   times at the serving shapes beside the bound, with each one's share of
-   it;
+   pair the kernel is instantiated for at S = 136, and the five
+   serving shapes, (8, 32, 2048, 80) MHA, (8, 32/4, 2048, 64) GQA,
+   (8, 128, 2048, 192/128) MLA and gemma3's (8, 16/8, 2048, 240) with
+   window 1024 (local) and without (global), these as the model's strided
+   (B, S, H, D) views and run twice, the two outputs bit-identical; bf16
+   outputs are held element by element, relative to one bf16 ulp and the
+   row's RMS, and every check must also reject a planted 5 % error on the
+   later positions; then the kernel's, the plain version's and
+   ``F.scaled_dot_product_attention``'s (with the window's mask written
+   out) device times at the serving shapes beside the bound (the kept
+   (query, key) pairs' flops), with each one's share of it;
 6. SSD kernel vs plain: in fp32 and bf16, on the CPU tests' shapes, the
    kernel's edges (one chunk; a chunk of 100; P = 8 with N = 4; the smoke
    config, P = N = 16 and L = 32, as strided views; one sequence of one
@@ -81,20 +83,26 @@ Phases, each printing its lines; any failure exits non-zero:
 10. LM main path: ``run_lm`` serving full-width ``zamba2-2.7b`` and then
    ``tinyllama-1.1b`` (weights drawn on the card from a seeded generator),
    batch 8, prompt 2048, 32 generated tokens, in bf16 and then in fp32;
-   each run must launch the SSD kernel once per Mamba-2 layer and the
-   flash kernel once per attention application; the first call of each
-   kernel and of each layer holding one in a prefill is rerun on its
+   then in bf16 ``deepseek-v2-236b`` and ``deepseek-v3-671b`` cut to 4
+   layers with int8 experts (quantised from bf16 draws) and the whole
+   ``gemma3-12b`` (``LM_CUTS``); each run must launch the SSD kernel once
+   per Mamba-2 layer and the flash kernel once per attention application
+   (gemma3: 40 windowed, 8 global); the first call of each kernel and of
+   each layer holding one in a prefill (``gqa_fwd``, gemma3's first local
+   and first global one, ``mla_fwd``, ``mamba2_fwd``) is rerun on its
    recorded inputs with the plain versions and with a planted fault, and
    must agree with the first and reject the second; the prefill logits
    and the teacher-forced decode logits are held against the same model
    run with the kernels' plain versions (bf16 runs against an fp32 run of
-   the same weights), and the token agreement is printed with the prefill
-   time, decode rate and peak memory from ``run_lm``'s own line; then
-   where the time goes: the teacher-forced run's prefill and decode
-   device time split by kernel (profiler traces) against ``run_lm``'s
-   wall times;
+   the same weights: the bf16 weights move to the host first, so the two
+   copies never share the card), and the
+   token agreement is printed with the prefill time, decode rate and
+   peak memory from ``run_lm``'s own line; then where the time goes: the
+   teacher-forced run's prefill and decode device time split by kernel
+   (profiler traces) against ``run_lm``'s wall times;
 11. the LM entry point as called with no arguments: ``run_lm(arch)`` for
-   each of the two archs, which serves the smoke config (head dim 16) in
+   each of the five archs, which serves the smoke config (head dim 16,
+   or MLA's 24 / 16, which the wrapper pads to the kernel's 32 / 32) in
    bf16 on the card; its tokens must be in range and the flash kernel
    must have launched.
 Each run of a main path sets the kernels' launch counts to 0 just before
@@ -107,7 +115,6 @@ limit and a JSON object with each kernel's numbers; the final line is
 from __future__ import annotations
 
 import contextlib
-import copy
 import gc
 import io
 import json
@@ -135,6 +142,14 @@ SHARDS = 4
 DTYPES = ("fp32", "bf16", "int8")
 LM_DTYPES = ("bf16", "fp32")
 LM_ARCHS = ("zamba2-2.7b", "tinyllama-1.1b")
+# served in bf16 only, each cut only where 80 GB forces it: DeepSeek-V2 to
+# 4 layers (1 dense + 3 MoE), DeepSeek-V3 to 4 (3 dense + 1 MoE), both
+# with int8 experts quantised from bf16 draws; gemma3-12b whole
+LM_NEW_ARCHS = ("deepseek-v2-236b", "deepseek-v3-671b", "gemma3-12b")
+LM_CUTS = {"deepseek-v2-236b": {"n_layers": 4,
+                                "expert_weights_dtype": "int8"},
+           "deepseek-v3-671b": {"n_layers": 4,
+                                "expert_weights_dtype": "int8"}}
 LM_BATCH, LM_PROMPT, LM_GEN = 8, 2048, 32
 # flash kernel vs plain (flash_err): in fp32 the max abs error, as the
 # outputs agree to rounding; in bf16 each output is rounded to bf16 and the
@@ -156,7 +171,11 @@ PLANT = 1.05
 # layer's signal, so that layer's bounds are small; each bound sits between
 # the readings of the kernels and of a planted fault (PERF.md)
 SSD_REL = 1e-4
+# (a gqa_fwd call with a window, gemma3's local layers, is checked as
+# "gqa_fwd[window]", a flash call with one as "flash_attention[window]")
 LAYER_TOL = {("gqa_fwd", "fp32"): 1e-5, ("gqa_fwd", "bf16"): 7.5e-3,
+             ("gqa_fwd[window]", "bf16"): 7.5e-3,
+             ("mla_fwd", "bf16"): 7.5e-3,
              ("mamba2_fwd", "fp32"): 1e-6, ("mamba2_fwd", "bf16"): 1e-5}
 # kernels vs plain through the whole model, logits relative to max |logit|:
 # in fp32 the two agree to rounding (LM_REL); in bf16 two roundings of a
@@ -1145,9 +1164,14 @@ def flash_head_dim_shapes(FA):
             for D, Dv in FA.supported_head_dims()]
 
 
-# the serving shapes: zamba2's shared block (MHA) and tinyllama (GQA)
+# the serving shapes: zamba2's shared block (MHA), tinyllama (GQA),
+# DeepSeek's MLA (192 / 128, 128 heads) and gemma3's local (window 1024)
+# and global layers (D = 240, 16 heads over 8)
 FLASH_SERVE = {"mha": (8, 32, 32, 2048, 2048, 80, 80, True, 0),
-               "gqa": (8, 32, 4, 2048, 2048, 64, 64, True, 0)}
+               "gqa": (8, 32, 4, 2048, 2048, 64, 64, True, 0),
+               "mla": (8, 128, 128, 2048, 2048, 192, 128, True, 0),
+               "local": (8, 16, 8, 2048, 2048, 240, 240, True, 1024),
+               "global": (8, 16, 8, 2048, 2048, 240, 240, True, 0)}
 # (Bt, L, H, P, N, chunk): the CPU tests' SSD shapes, then zamba2's
 SSD_SHAPES = [(1, 128, 1, 16, 8, 64), (2, 256, 3, 32, 16, 128),
               (1, 512, 2, 64, 32, 256), (2, 64, 4, 8, 8, 64),
@@ -1182,16 +1206,26 @@ def flash_inputs(torch, shape, dtype, gen, model_layout=False):
     return rn(B, H, Sq, D, 0.3), rn(B, Kh, Sk, D, 0.3), rn(B, Kh, Sk, Dv, 1.0)
 
 
+def kept_pairs(Sq, Sk, causal, window):
+    """(query, key) pairs a head's masks keep: every pair, or with the
+    causal mask (Sq = Sk = S) S (S + 1) / 2, or with a window W < S too
+    W (W + 1) / 2 + (S - W) W."""
+    if not causal:
+        assert window == 0
+        return Sq * Sk
+    assert Sq == Sk
+    W = window if 0 < window < Sq else Sq
+    return W * (W + 1) // 2 + (Sq - W) * W
+
+
 def flash_work(shape, dtype):
     """(bytes, operations) one attention call needs: q, k, v read once and
     o written once; 2 (D + Dv) flops for each (query, key) pair the masks
-    keep (causal, Sq = Sk: S (S + 1) / 2 pairs a head)."""
+    keep (``kept_pairs``)."""
     B, H, Kh, Sq, Sk, D, Dv, causal, window = shape
     item = 4 if dtype == "fp32" else 2
     nbytes = item * (B * H * Sq * (D + Dv) + B * Kh * Sk * (D + Dv))
-    assert window == 0 and (not causal or Sq == Sk)
-    pairs = Sq * (Sq + 1) // 2 if causal else Sq * Sk
-    return nbytes, 2.0 * B * H * pairs * (D + Dv)
+    return nbytes, 2.0 * B * H * kept_pairs(Sq, Sk, causal, window) * (D + Dv)
 
 
 def flash_err(torch, o, p, dtype):
@@ -1268,16 +1302,20 @@ def phase_flash(torch, FA):
               "serving shapes bit-identical over two runs")
         for name, shape in FLASH_SERVE.items():
             args = [flash_inputs(torch, shape, dtype, gen, True)]
-            gqa = shape[1] != shape[2]
+            gqa, window = shape[1] != shape[2], shape[8]
+            # the library: causal, or with the window's mask written out
+            lib_mask = dict(is_causal=True) if not window else dict(
+                attn_mask=FA._masks(shape[3], shape[4], True, window, DEV))
             kms, kcall = timed(torch, lambda q, k, v: FA.flash_attention_cuda(
-                q, k, v), args, iters=5)
+                q, k, v, window=window), args, iters=5)
             pms, _ = timed(torch, lambda q, k, v: FA.flash_attention_plain(
-                q, k, v), args, iters=3)
+                q, k, v, window=window), args, iters=3)
             lms, _ = timed(torch, lambda q, k, v: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=gqa), args, iters=5)
+                q, k, v, enable_gqa=gqa, **lib_mask), args, iters=5)
             bms, by = work_bound(dtype, *flash_work(shape, dtype))
             timings[(dtype, name)] = (kms, pms, lms, bms, by)
-            print(f"[flash] {dtype} {name} {shape[:7]}: kernel_ms={kms:.4f} "
+            print(f"[flash] {dtype} {name} {shape[:7]} window {window}: "
+                  f"kernel_ms={kms:.4f} "
                   f"(per call {kcall:.4f}) plain_ms={pms:.4f} "
                   f"library_ms={lms:.4f} bound_ms={bms:.4f} ({by}); the "
                   f"kernel at {bms / kms:.1%} of the bound, the library at "
@@ -1489,16 +1527,20 @@ def planted_kernels(ops):
 
 class FirstCalls:
     """Within the block, keeps the arguments of the first call of each
-    ``module.name`` of ``fns`` (a list of (module, name)), by name."""
+    ``module.name`` of ``fns`` (a list of (module, name)) and counts the
+    calls, by key: the name, with "[window]" after it for a call with a
+    sliding window (gemma3's local layers)."""
 
     def __init__(self, fns):
-        self.fns, self.calls = fns, {}
+        self.fns, self.calls, self.counts = fns, {}, {}
 
     def __enter__(self):
         self.saved = [getattr(mod, name) for mod, name in self.fns]
         for (mod, name), orig in zip(self.fns, self.saved):
             def call(*a, _fn=orig, _mod=mod, _name=name, **kw):
-                self.calls.setdefault(_name, (_mod, a, kw))
+                key = f"{_name}[window]" if kw.get("window") else _name
+                self.calls.setdefault(key, (_mod, _name, a, kw))
+                self.counts[key] = self.counts.get(key, 0) + 1
                 return _fn(*a, **kw)
             setattr(mod, name, call)
         return self
@@ -1515,21 +1557,21 @@ def rel_fro(torch, got, want):
                  / torch.linalg.vector_norm(want))
 
 
-def first_call_tol(name, dtype):
+def first_call_tol(key, name, dtype):
     if name == "flash_attention":
         return FLASH_TOL[dtype]
-    return SSD_REL if name == "mamba2_ssd" else LAYER_TOL[(name, dtype)]
+    return SSD_REL if name == "mamba2_ssd" else LAYER_TOL[(key, dtype)]
 
 
 def first_call_check(torch, ops, FA, SSD, calls, dtype):
     """Each recorded call rerun on its recorded inputs with the kernels,
-    with their plain versions and with a planted fault: {name: (error,
+    with their plain versions and with a planted fault: {key: (error,
     planted error, tolerance)}.  The flash kernel's output is measured by
     ``flash_err``, the SSD's y and state and a layer's output by their
     relative Frobenius error (``rel_fro``), each against the plain
     versions' run."""
     out = {}
-    for name, (mod, a, kw) in calls.items():
+    for key, (mod, name, a, kw) in calls.items():
         def run():
             with torch.inference_mode():
                 return getattr(mod, name)(*a, **kw)
@@ -1546,14 +1588,44 @@ def first_call_check(torch, ops, FA, SSD, calls, dtype):
         e = err(run())
         with planted_kernels(ops):
             e_bad = err(run())
-        out[name] = (e, e_bad, first_call_tol(name, dtype))
+        out[key] = (e, e_bad, first_call_tol(key, name, dtype))
         del want
     return out
 
 
 def lm_config(arch):
+    """The config ``phase_lm`` serves: the published one, cut by
+    ``LM_CUTS``."""
     from repro_torch.configs import base as cb
-    return cb.get(arch)
+    return cb.get(arch).replace(**LM_CUTS.get(arch, {}))
+
+
+def lm_cuts(arch):
+    """``LM_CUTS[arch]`` as text: each field, published -> served."""
+    from repro_torch.configs import base as cb
+    full = cb.get(arch)
+    return ", ".join(f"{k} {getattr(full, k)} -> {v}"
+                     for k, v in LM_CUTS.get(arch, {}).items()) or "none"
+
+
+def lm_model(mdl, cfg, dtype, gen):
+    """Weights for ``cfg`` drawn on the card from ``gen``.  int8 experts
+    are quantised from bf16 draws (an int8 spec initialises to zeros), a
+    layer at a time, each layer's bf16 experts freed as it goes."""
+    if cfg.expert_weights_dtype != "int8":
+        return mdl.init(cfg, gen, dtype, DEV)
+    from repro_torch.models import moe
+    from repro_torch.models.params import init_params
+    tree = init_params(mdl.param_specs(cfg.replace(
+        expert_weights_dtype="bf16")), gen, dtype, DEV)
+    for block in tree["blocks"]:
+        block["moe"] = moe.quantize_expert_weights(block["moe"])
+    return mdl.LM(cfg, tree)
+
+
+def param_gib(params):
+    return sum(p.numel() * p.element_size()
+               for p in params.parameters()) / 2**30
 
 
 def max_rel(got, want):
@@ -1628,116 +1700,136 @@ def served(torch, serve, cfg, params, tokens):
 
 
 def phase_lm(torch, serve, FA, SSD):
+    launches = {f"{name}[{dtype}]": 0 for dtype in LM_DTYPES
+                for name in ("flash_attention", "mamba2_ssd")}
+    runs = [(arch, dtype) for dtype in LM_DTYPES for arch in LM_ARCHS] + \
+        [(arch, "bf16") for arch in LM_NEW_ARCHS]
+    for arch, dtype in runs:
+        n_fa, n_ssd = lm_serve_and_check(torch, serve, FA, SSD, arch, dtype)
+        launches[f"flash_attention[{dtype}]"] += n_fa
+        launches[f"mamba2_ssd[{dtype}]"] += n_ssd
+    return launches
+
+
+def lm_serve_and_check(torch, serve, FA, SSD, arch, dtype):
+    """One arch in one dtype through ``run_lm`` and its checks (phase 10);
+    returns the served run's (flash, SSD) launches."""
     from repro_torch.kernels import ops
     from repro_torch.launch import specs as sp
     from repro_torch.models import attention, ssm
     from repro_torch.models import model as mdl
-    launches = {f"{name}[{dtype}]": 0 for dtype in LM_DTYPES
-                for name in ("flash_attention", "mamba2_ssd")}
-    for dtype in LM_DTYPES:
-        for arch in LM_ARCHS:
-            cfg = lm_config(arch)
-            t0 = time.perf_counter()
-            gen = torch.Generator(device=DEV).manual_seed(0)
-            params = mdl.init(cfg, gen, getattr(torch, TORCH_DTYPE[dtype]),
-                              DEV)
-            tokens = sp.make_batch(cfg, LM_PROMPT, LM_BATCH, gen,
-                                   device=DEV)["tokens"]
-            torch.cuda.synchronize()
-            init_s = time.perf_counter() - t0
-            gc.collect()        # earlier phases' cycles (a gallery) off the card
-            torch.cuda.reset_peak_memory_stats()
-            FA.launches = SSD.launches = 0
-            toks, prefill_ms, step_ms = served(torch, serve, cfg, params,
-                                               tokens)
-            n_fa, n_ssd = FA.launches, SSD.launches
-            peak = torch.cuda.max_memory_allocated() / 2**30
-            n_mamba = cfg.n_layers if cfg.family == "hybrid" else 0
-            n_attn = cfg.n_superblocks
-            if (n_fa, n_ssd) != (n_attn, n_mamba):
-                raise AssertionError(f"lm {arch} {dtype}: launches flash="
-                                     f"{n_fa} ssd={n_ssd}, want {n_attn} "
-                                     f"and {n_mamba}")
-            launches[f"flash_attention[{dtype}]"] += n_fa
-            launches[f"mamba2_ssd[{dtype}]"] += n_ssd
-            if tuple(toks.shape) != (LM_BATCH, LM_GEN) or \
-                    int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
-                raise AssertionError(f"lm {arch} {dtype}: tokens "
-                                     f"{tuple(toks.shape)}")
-            # the kernels' teacher-forced run, traced, recording the inputs
-            # of the first call of each kernel and of each layer holding one
-            split = {}
-            first = [(ops, "flash_attention"), (attention, "gqa_fwd")]
-            if n_mamba:
-                first += [(ops, "mamba2_ssd"), (ssm, "mamba2_fwd")]
-            with FirstCalls(first) as rec:
-                kern = teacher_forced(torch, serve, mdl, params, cfg, tokens,
-                                      toks, split)
-            with plain_kernels(ops, FA, SSD):
-                plain = teacher_forced(torch, serve, mdl, params, cfg,
-                                       tokens, toks)
-            for i, a in enumerate(kern):
-                if not (bool(torch.isfinite(a).all()) and a.shape ==
-                        (LM_BATCH, cfg.vocab_size)):
-                    raise AssertionError(f"lm {arch} {dtype}: step {i} "
-                                         "logits not finite")
-            firsts = first_call_check(torch, ops, FA, SSD, rec.calls, dtype)
-            del rec
-            for name, (e, e_bad, tol) in firsts.items():
-                if not e <= tol < e_bad:
-                    raise AssertionError(
-                        f"lm {arch} {dtype}: first {name} kernels vs plain "
-                        f"{e}, planted fault {e_bad} (tolerance {tol})")
-            agree = sum(int((b.argmax(-1) == toks[:, i]).sum())
-                        for i, b in enumerate(plain))
-            rel = max_rel(kern, plain)
-            if dtype == "fp32":
-                check = f"tolerance {LM_REL}"
-                ok = rel <= LM_REL
-            else:
-                p32 = copy.deepcopy(params).float()
-                truth = teacher_forced(torch, serve, mdl, p32, cfg, tokens,
-                                       toks)
-                del p32
-                err_k, err_p = max_rel(kern, truth), max_rel(plain, truth)
-                check = (f"vs fp32 weights: kernels {err_k:.3g}, plain "
-                         f"{err_p:.3g} (at most {LM_BF16_RATIO}x plain)")
-                ok = err_k <= LM_BF16_RATIO * err_p
-            if not ok:
-                raise AssertionError(f"lm {arch} {dtype}: kernel logits vs "
-                                     f"plain {rel}; {check}")
-            first_txt = ", ".join(
-                f"{name} {e:.3g} (tolerance {tol}, planted fault "
-                f"{e_bad:.3g})" for name, (e, e_bad, tol) in firsts.items())
-            print(f"[lm] {arch} {dtype}: batch {LM_BATCH}, prompt "
-                  f"{LM_PROMPT}, gen {LM_GEN}: launches flash={n_fa} "
-                  f"ssd={n_ssd}; prefill_ms={prefill_ms:.1f} "
-                  f"decode_tok_s={LM_BATCH / step_ms * 1e3:.1f} "
-                  f"peak_mem_gib={peak:.2f}; first calls in prefill, "
-                  f"kernels vs plain: {first_txt}; teacher-forced logits, "
-                  f"max rel err kernels "
-                  f"vs plain {rel:.3g}, {check}; plain argmax == served "
-                  f"token {agree}/{toks.numel()}; weights made in "
-                  f"{init_s:.1f} s")
-            pre, dec = split["prefill"], split["decode"]
-            step_dev = dec["total"] / (LM_GEN - 1)
-            print(f"[lm-time] {arch} {dtype}: prefill device_ms="
-                  f"{pre['total']:.1f} (flash {pre['flash']:.1f}, ssd "
-                  f"{pre['ssd']:.1f}, other "
-                  f"{pre['total'] - pre['flash'] - pre['ssd']:.1f}) of "
-                  f"wall_ms={prefill_ms:.1f}; decode step device_ms="
-                  f"{step_dev:.2f} of wall_ms={step_ms:.2f} (device idle "
-                  f"{1 - step_dev / step_ms:.1%})")
-            del params, tokens, toks, kern, plain
-            torch.cuda.empty_cache()
-    return launches
+    cfg = lm_config(arch)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    params = lm_model(mdl, cfg, getattr(torch, TORCH_DTYPE[dtype]), gen)
+    tokens = sp.make_batch(cfg, LM_PROMPT, LM_BATCH, gen,
+                           device=DEV)["tokens"]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gib = param_gib(params)
+    gc.collect()        # earlier phases' cycles (a gallery) off the card
+    torch.cuda.reset_peak_memory_stats()
+    FA.launches = SSD.launches = 0
+    toks, prefill_ms, step_ms = served(torch, serve, cfg, params, tokens)
+    n_fa, n_ssd = FA.launches, SSD.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_mamba = cfg.n_layers if cfg.family == "hybrid" else 0
+    n_attn = cfg.n_superblocks if cfg.family == "hybrid" else cfg.n_layers
+    n_win = cfg.n_superblocks * (cfg.superblock - 1) \
+        if cfg.family == "gemma3" else 0
+    if (n_fa, n_ssd) != (n_attn, n_mamba):
+        raise AssertionError(f"lm {arch} {dtype}: launches flash={n_fa} "
+                             f"ssd={n_ssd}, want {n_attn} and {n_mamba}")
+    if tuple(toks.shape) != (LM_BATCH, LM_GEN) or \
+            int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+        raise AssertionError(f"lm {arch} {dtype}: tokens {tuple(toks.shape)}")
+    # the kernels' teacher-forced run, traced, recording the inputs of the
+    # first call of each kernel and of each layer holding one
+    split = {}
+    first = [(ops, "flash_attention"),
+             (attention, "mla_fwd" if cfg.attn_kind == "mla" else "gqa_fwd")]
+    if n_mamba:
+        first += [(ops, "mamba2_ssd"), (ssm, "mamba2_fwd")]
+    with FirstCalls(first) as rec:
+        kern = teacher_forced(torch, serve, mdl, params, cfg, tokens, toks,
+                              split)
+    calls = (rec.counts.get("flash_attention", 0),
+             rec.counts.get("flash_attention[window]", 0))
+    if calls != (n_attn - n_win, n_win):
+        raise AssertionError(f"lm {arch} {dtype}: flash calls (global, "
+                             f"windowed) {calls}, want "
+                             f"{(n_attn - n_win, n_win)}")
+    with plain_kernels(ops, FA, SSD):
+        plain = teacher_forced(torch, serve, mdl, params, cfg, tokens, toks)
+    for i, a in enumerate(kern):
+        if not (bool(torch.isfinite(a).all()) and a.shape ==
+                (LM_BATCH, cfg.vocab_size)):
+            raise AssertionError(f"lm {arch} {dtype}: step {i} logits not "
+                                 "finite")
+    firsts = first_call_check(torch, ops, FA, SSD, rec.calls, dtype)
+    del rec
+    for key, (e, e_bad, tol) in firsts.items():
+        if not e <= tol < e_bad:
+            raise AssertionError(
+                f"lm {arch} {dtype}: first {key} kernels vs plain {e}, "
+                f"planted fault {e_bad} (tolerance {tol})")
+    agree = sum(int((b.argmax(-1) == toks[:, i]).sum())
+                for i, b in enumerate(plain))
+    rel = max_rel(kern, plain)
+    memory = ""
+    if dtype == "fp32":
+        check = f"tolerance {LM_REL}"
+        ok = rel <= LM_REL
+    else:
+        # the two copies never share the card: the bf16 weights go to the
+        # host, then come back as fp32 (int8 experts stay int8)
+        params.to("cpu")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        p32 = params.to(DEV, torch.float32)
+        memory = (f"; fp32 copy {param_gib(p32):.2f} GiB, the bf16 weights "
+                  "on the host meanwhile")
+        truth = teacher_forced(torch, serve, mdl, p32, cfg, tokens, toks)
+        memory += (f", fp32 run peak "
+                   f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del p32
+        err_k, err_p = max_rel(kern, truth), max_rel(plain, truth)
+        check = (f"vs fp32 weights: kernels {err_k:.3g}, plain {err_p:.3g} "
+                 f"(at most {LM_BF16_RATIO}x plain)")
+        ok = err_k <= LM_BF16_RATIO * err_p
+    if not ok:
+        raise AssertionError(f"lm {arch} {dtype}: kernel logits vs plain "
+                             f"{rel}; {check}")
+    first_txt = ", ".join(
+        f"{key} {e:.3g} (tolerance {tol}, planted fault {e_bad:.3g})"
+        for key, (e, e_bad, tol) in firsts.items())
+    print(f"[lm] {arch} {dtype}: batch {LM_BATCH}, prompt {LM_PROMPT}, gen "
+          f"{LM_GEN}, {cfg.n_layers} layers, cuts: {lm_cuts(arch)}: "
+          f"launches flash={n_fa} ({n_win} windowed) ssd={n_ssd}; "
+          f"prefill_ms={prefill_ms:.1f} "
+          f"decode_tok_s={LM_BATCH / step_ms * 1e3:.1f} "
+          f"peak_mem_gib={peak:.2f} (weights {weights_gib:.2f} GiB{memory}); "
+          f"first calls in prefill, kernels vs plain: {first_txt}; "
+          f"teacher-forced logits, max rel err kernels vs plain {rel:.3g}, "
+          f"{check}; plain argmax == served token {agree}/{toks.numel()}; "
+          f"weights made in {init_s:.1f} s")
+    pre, dec = split["prefill"], split["decode"]
+    step_dev = dec["total"] / (LM_GEN - 1)
+    print(f"[lm-time] {arch} {dtype}: prefill device_ms={pre['total']:.1f} "
+          f"(flash {pre['flash']:.1f}, ssd {pre['ssd']:.1f}, other "
+          f"{pre['total'] - pre['flash'] - pre['ssd']:.1f}) of wall_ms="
+          f"{prefill_ms:.1f}; decode step device_ms={step_dev:.2f} of "
+          f"wall_ms={step_ms:.2f} (device idle {1 - step_dev / step_ms:.1%})")
+    del params, tokens, toks, kern, plain
+    torch.cuda.empty_cache()
+    return n_fa, n_ssd
 
 
 def phase_lm_default(torch, serve, FA):
     """``run_lm(arch)`` with no other argument, as a user calls it: the
     smoke config, bf16, on the card."""
     from repro_torch.configs import base as cb
-    for arch in LM_ARCHS:
+    for arch in LM_ARCHS + LM_NEW_ARCHS:
         cfg = cb.smoke(arch)
         FA.launches = 0
         toks = serve.run_lm(arch)
@@ -1747,9 +1839,12 @@ def phase_lm_default(torch, serve, FA):
             raise AssertionError(f"run_lm({arch!r}): tokens "
                                  f"{tuple(toks.shape)}, {n_fa} flash "
                                  "launches")
-        print(f"[lm-default] run_lm({arch!r}): smoke config, head dim "
-              f"{cfg.dh}, tokens {tuple(toks.shape)} in range, flash "
-              f"launches {n_fa}")
+        heads = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim,
+                 cfg.v_head_dim) if cfg.attn_kind == "mla" else \
+            (cfg.dh, cfg.dh)
+        print(f"[lm-default] run_lm({arch!r}): smoke config, head dims "
+              f"{heads} (the kernel's {FA.padded_head_dims(*heads)}), "
+              f"tokens {tuple(toks.shape)} in range, flash launches {n_fa}")
 
 
 def main() -> int:
@@ -1811,7 +1906,17 @@ def main() -> int:
     for dtype in LM_DTYPES:
         name = f"flash_attention[{dtype}]"
         kms, pms, lms, bms, by = f_timings[(dtype, "mha")]
-        g = f_timings[(dtype, "gqa")]
+        more = {}
+        for key in FLASH_SERVE:
+            if key == "mha":
+                continue
+            B, H, Kh, S, _, D, Dv, _, window = FLASH_SERVE[key]
+            t = f_timings[(dtype, key)]
+            more[key] = {
+                "shape": f"B={B} H={H} Kh={Kh} S={S} D={D} Dv={Dv} causal"
+                         + (f" window={window}" if window else ""),
+                "ms": t[0], "plain_ms": t[1], "library_ms": t[2],
+                "bound_ms": t[3], "bound_by": t[4]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1819,10 +1924,7 @@ def main() -> int:
             "launches": lm_launches[name], "max_abs_err": f_errs[dtype],
             "ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
             "library_ms": lms, "sass": sass,
-            "shape": "B=8 H=32 Kh=32 S=2048 D=80 causal",
-            "gqa": {"shape": "B=8 H=32 Kh=4 S=2048 D=64 causal",
-                    "ms": g[0], "plain_ms": g[1], "library_ms": g[2],
-                    "bound_ms": g[3], "bound_by": g[4]}})
+            "shape": "B=8 H=32 Kh=32 S=2048 D=80 causal", **more})
     for dtype in LM_DTYPES:
         name = f"mamba2_ssd[{dtype}]"
         kms, pms, bms, by, fms, path, stages = s_timings[dtype]

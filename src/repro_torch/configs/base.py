@@ -4,10 +4,11 @@ Every assigned architecture gets one module in this package defining
 ``CONFIG`` (exact published numbers) and ``smoke()`` (a reduced config of the
 same family for CPU tests). ``get(name)`` resolves either.
 
-The port's copy of the reference's ``configs/base.py``.  Only the dense
-and hybrid families' modules (``tinyllama-1.1b``, ``zamba2-2.7b``) are
-ported so far; the other ids of ``ARCH_IDS`` raise, naming the ROADMAP
-item that ports them (Queue 1 item 9).
+The port's copy of the reference's ``configs/base.py``.  The modules of
+the dense, hybrid, MoE and gemma3 families (``tinyllama-1.1b``,
+``zamba2-2.7b``, ``deepseek-v2-236b``, ``deepseek-v3-671b``,
+``gemma3-12b``) are ported so far; the other ids of ``ARCH_IDS`` raise,
+naming the ROADMAP item that ports them (Queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -132,7 +133,8 @@ ARCH_IDS = [
 ]
 
 
-PORTED = ("zamba2-2.7b", "tinyllama-1.1b")
+PORTED = ("zamba2-2.7b", "tinyllama-1.1b", "deepseek-v2-236b",
+          "deepseek-v3-671b", "gemma3-12b")
 
 
 def _module(name: str):

@@ -12,7 +12,10 @@ the port's modules and a ``SecureGallery`` that compute the same:
   labels and tenants, which are enrolled again in the same order;
 * an LM's parameter tree (``lm_params``): the reference stacks every
   block's parameters on a leading axis (two for the hybrid's Mamba-2
-  layers: superblock, then layer), the port holds one module per block.
+  layers and gemma3's attention and MLP layers: superblock, then layer),
+  the port holds one module per block and a list per superblock; the
+  MoE family's ``prefix`` layers and the ``mtp`` head are carried as they
+  are, int8 expert matrices and their f32 scales in their own dtypes.
 """
 from __future__ import annotations
 
@@ -77,18 +80,19 @@ def _map(fn, tree):
 def lm_params(cfg, params_np) -> "mdl.LM":
     """The port's model holding the reference's parameters (a tree of
     numpy arrays, as ``jax.tree.map(np.asarray, params)`` gives): ``embed``,
-    ``final_ln`` and ``shared`` as they are, ``blocks`` unstacked into one
-    entry per block (and the hybrid's ``mamba`` into one per layer)."""
+    ``final_ln``, ``prefix``, ``shared`` and ``mtp`` as they are, ``blocks``
+    unstacked into one entry per block (and the hybrid's ``mamba`` and
+    gemma3's ``attn`` and ``mlp`` into one per layer)."""
     stacked = params_np["blocks"]
+    per_layer = {"hybrid": ("mamba",), "gemma3": ("attn", "mlp")}.get(
+        cfg.family, ())
     blocks = []
     for i in range(cfg.n_superblocks):
         b = _map(lambda a: np.asarray(a)[i], stacked)
-        if cfg.family == "hybrid":
-            b = {"mamba": [_map(lambda a: a[j], b["mamba"])
-                           for j in range(cfg.superblock)]}
+        for name in per_layer:
+            b[name] = [_map(lambda a: a[j], b[name])
+                       for j in range(cfg.superblock)]
         blocks.append(b)
-    tree = {"embed": params_np["embed"], "final_ln": params_np["final_ln"],
-            "blocks": blocks}
-    if "shared" in params_np:
-        tree["shared"] = params_np["shared"]
+    tree = {k: v for k, v in params_np.items() if k != "blocks"}
+    tree["blocks"] = blocks
     return mdl.LM(cfg, _map(_tensor, tree))

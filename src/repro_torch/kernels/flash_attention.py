@@ -27,7 +27,11 @@ contiguous, and base addresses and strides multiples of 16 bytes, for TMA
 and ``cp.async``); the output is allocated (B, Sq, H, Dv) and returned as
 its (B, H, Sq, Dv) view, so the model's transpose back is contiguous.  The
 kernel takes the (D, Dv) pairs of ``supported_head_dims()``: every multiple
-of 16 up to 256 with Dv = D, and 192 / 128.
+of 16 up to 256 with Dv = D, and 192 / 128.  ``flash_attention_cuda`` runs
+any other pair up to 256 as the kernel's (P, P), P the larger of D and Dv
+rounded up to 16: q, k and v are zero-padded to P, which adds nothing to
+any score or output, the scale stays D^-1/2, and the output is cut back to
+Dv (a smoke config's MLA, (24, 16), runs so).
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ import functools
 import re
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 
@@ -82,17 +87,29 @@ def _masks(Sq: int, Sk: int, causal: bool, window: int, device):
     return mask
 
 
-def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0):
+# the most bytes of fp32 scores the plain version holds at once
+PLAIN_SCORE_BYTES = 1 << 32
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
+                          scale=None):
     """The kernel's function in plain PyTorch, on whatever device the
-    tensors are on: fp32 scores, left-aligned masks to NEG, an fp32
-    softmax, probabilities cast to v's dtype before the PV product, the
-    output in q's dtype.  The CPU path, and what the kernel is held against
-    on the card."""
+    tensors are on: fp32 scores times ``scale`` (D^-1/2 by default),
+    left-aligned masks to NEG, an fp32 softmax, probabilities cast to v's
+    dtype before the PV product, the output in q's dtype.  The CPU path,
+    and what the kernel is held against on the card.  It takes a few
+    sequences at a time where the whole batch's scores would pass
+    ``PLAIN_SCORE_BYTES``."""
     B, H, Sq, D = q.shape
     Kh, Sk = k.shape[1], k.shape[2]
+    n = max(1, PLAIN_SCORE_BYTES // (H * Sq * Sk * 4))
+    if B > n:
+        return torch.cat([flash_attention_plain(
+            q[b:b + n], k[b:b + n], v[b:b + n], causal=causal,
+            window=window, scale=scale) for b in range(0, B, n)])
     qg = q.reshape(B, Kh, H // Kh, Sq, D)
     s = torch.einsum("bkgqd,bksd->bkgqs", qg.float(), k.float()).mul_(
-        D ** -0.5)
+        D ** -0.5 if scale is None else scale)
     s.masked_fill_(~_masks(Sq, Sk, causal, window, q.device), NEG)
     p = torch.softmax(s, dim=-1).to(v.dtype)
     o = torch.einsum("bkgqs,bksd->bkgqd", p.float(), v.float())
@@ -145,7 +162,17 @@ def _check(q, k, v):
         raise ValueError("flash_attention: q, k and v must share a dtype")
 
 
-def _flash_cuda(q, k, v, causal: bool, window: int):
+def padded_head_dims(D: int, Dv: int):
+    """The (D, Dv) pair the kernel runs for a call at (D, Dv): the pair
+    itself where it is instantiated, else (P, P) with P the larger of the
+    two rounded up to 16 (``flash_attention_cuda`` zero-pads to it)."""
+    if (D, Dv) in supported_head_dims():
+        return D, Dv
+    P = -(-max(D, Dv) // 16) * 16
+    return P, P
+
+
+def _flash_cuda(q, k, v, causal: bool, window: int, scale=None):
     global launches
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"flash_attention: no kernel for {q.dtype}")
@@ -170,7 +197,8 @@ def _flash_cuda(q, k, v, causal: bool, window: int):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.fa_forward(_DTYPE_CODE[q.dtype], q.data_ptr(),
                              k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H,
-                             Kh, Sq, Sk, D, Dv, strides, D ** -0.5,
+                             Kh, Sq, Sk, D, Dv, strides,
+                             D ** -0.5 if scale is None else scale,
                              int(causal), int(window), stream)
     if err != 0:
         raise RuntimeError("flash_attention: kernel launch failed: "
@@ -189,5 +217,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if q.device.type == "cuda":
-        return _flash_cuda(q, k, v, causal, window)
+        D, Dv = q.shape[3], v.shape[3]
+        P, Pv = padded_head_dims(D, Dv)
+        if (P, Pv) == (D, Dv) or P > 256:
+            return _flash_cuda(q, k, v, causal, window)
+        o = _flash_cuda(F.pad(q, (0, P - D)), F.pad(k, (0, P - D)),
+                        F.pad(v, (0, Pv - Dv)), causal, window,
+                        scale=D ** -0.5)
+        return o[..., :Dv]
     raise ValueError(f"flash_attention: no kernel for device {q.device}")

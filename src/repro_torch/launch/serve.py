@@ -10,16 +10,17 @@ CR-FIQA/FaceNet bitstreams), and serves it two ways:
   against its *own* watchlist (tenant-scoped gallery views).
 * ``--mode biometric``: the single-operator scenario with a live hot-swap.
 
-* ``--mode lm``: LM serving (prefill, then greedy decode) for the dense
-  and hybrid families (``run_lm``).
+* ``--mode lm``: LM serving (prefill, then greedy decode) for the dense,
+  hybrid, MoE and gemma3 families (``run_lm``).
 
 The port of the reference's ``launch/serve.py``.  The stages are
 ``nn.Module``s computing in NCHW;
 the public functions keep the reference's NHWC frames, crops and weights
 layout at their edges.  Everything runs on the card unless the caller
-passes ``device="cpu"``.  The serving path turns TF32 off for cuDNN
+passes ``device="cpu"``.  The serving paths turn TF32 off for cuDNN
 convolutions and matmuls (``_strict_fp32``): with TF32 a convolution could
-move the detector's argmax and so crop a different face.
+move the detector's argmax and so crop a different face, and an fp32 LM
+would no longer compute in fp32.
 """
 from __future__ import annotations
 
@@ -437,7 +438,11 @@ def run_fleet(duration_s=3.0, load=None, hotswap=False, *, device=None,
 # ---------------------------------------------------------------------------
 def _put(dst, src):
     """A prefill cache leaf written into the front of the T-long cache
-    leaf (along the first axis where the shapes differ), in its dtype."""
+    leaf (along the first axis where the shapes differ), in its dtype.  A
+    sliding-window layer's ring is ``min(window, T)`` long: a prompt at
+    least as long fills it whole (in the ring layout prefill left), a
+    shorter one its first slots, which are the slots of those positions;
+    the MLA latent cache fills as a KV cache does."""
     if src.dim() == 0 or dst.shape == src.shape:
         return src.to(dst.dtype)
     ax = [i for i, (a, b) in enumerate(zip(dst.shape, src.shape))
@@ -476,6 +481,7 @@ def run_lm(arch="tinyllama-1.1b", batch=2, prompt_len=32, gen=16, *,
     prompts (batch, prompt_len); the caches take the weights' dtype (bf16,
     the reference's ``MODEL_DTYPE``, by default)."""
     dev = resolve_device(device)
+    _strict_fp32()
     cfg = cfg if cfg is not None else cb.smoke(arch)
     gen_t = torch.Generator(device=dev).manual_seed(0)
     if params is None:

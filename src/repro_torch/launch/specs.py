@@ -26,9 +26,11 @@ def make_batch(cfg, S: int, B: int, generator: torch.Generator,
 
 
 def init_cache(cfg, B: int, T: int, *, dtype=MODEL_DTYPE, device=None):
-    """Fresh (empty) cache.  Attention ``pos`` slots hold ``POS_EMPTY`` so
-    unwritten entries are masked out (cpos <= pos fails); floating leaves
-    without a dtype of their own take ``dtype``."""
+    """Fresh (empty) cache, in ``mdl.cache_specs``'s tree (a list of
+    blocks; for the MoE family a dict of ``scan`` and ``prefix``).
+    Attention ``pos`` slots, of KV, ring and latent caches alike, hold
+    ``POS_EMPTY`` so unwritten entries are masked out (cpos <= pos fails);
+    floating leaves without a dtype of their own take ``dtype``."""
     def mk(tree, key=None):
         if isinstance(tree, dict):
             return {k: mk(v, k) for k, v in tree.items()}

@@ -1,21 +1,33 @@
-"""The LM: the dense and hybrid families as ``nn.Module``s.
+"""The LM: the dense, hybrid, MoE and gemma3 families as ``nn.Module``s.
 
-The port of the reference's ``models/model.py`` for two families:
+The port of the reference's ``models/model.py`` for four families:
 
   dense   n_layers x {attn (GQA), mlp}                   tinyllama
   hybrid  n_layers / superblock x {superblock x mamba}, each followed by
           one weight-tied shared {attn, mlp}              zamba2
+  moe     first_dense_layers x {attn (MLA), mlp} (``prefix``), then
+          {attn (MLA), moe} per layer                     deepseek-v2/v3
+  gemma3  n_layers / superblock x {superblock x {attn, mlp}}: the last
+          layer of each superblock global (``rope_theta_global``, full
+          attention), the others local (``rope_theta``, a sliding window)
+                                                          gemma3
 
 The reference stacks each layer's parameters on a leading axis and scans
 over it; here every block is its own module in an ``nn.ModuleList`` and the
 layers run as a Python loop.  Parameter names are the reference's
 (``embed.tok``, ``blocks[i].attn.wq``, ``blocks[i].mamba[j].w_in``,
-``shared.mlp.w_up``, ...), so ``convert.lm_params`` is a walk over the
-reference's tree that unstacks ``blocks``.  Caches follow the same layout:
-a list with one dict per block.
+``prefix.l0.attn.wdq``, ``shared.mlp.w_up``, ...), so ``convert.lm_params``
+is a walk over the reference's tree that unstacks ``blocks``.  Caches
+follow the same layout: a list with one dict per block (for the MoE
+family ``{"scan": [...], "prefix": {"l0": ...}}``, as the reference's).
+DeepSeek-V3's ``mtp`` head is in the parameter tree, as the reference's,
+and unused in serving.  The reference runs the MoE prefix layers a second
+time to build their caches; here they give their caches in the one pass
+(the same result, one flash launch a layer).
 
 Entry points (of ``(params, cfg, ...)``, as the reference's):
-  forward      logits over a full sequence (prefill path, optional caches)
+  forward      logits over a full sequence (prefill path, optional caches),
+               and the MoE layers' summed aux loss
   prefill      run a prompt, return (last-token logits, cache)
   decode_step  one token through the cache -> (logits, cache); the cache is
                updated in place
@@ -29,10 +41,11 @@ from torch import nn
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models.params import Params, Spec, init_params
 
-FAMILIES = ("dense", "hybrid")
+FAMILIES = ("dense", "hybrid", "moe", "gemma3")
 
 
 def _check_family(cfg):
@@ -65,28 +78,55 @@ def _mlp_fwd(p, x, cfg):
 
 
 def _block_specs(cfg):
-    if cfg.family == "dense":
+    fam = cfg.family
+    if fam == "dense":
         return {"attn": A.gqa_specs(cfg), "mlp": _mlp_specs(cfg)}
+    if fam == "gemma3":
+        return {"attn": [A.gqa_specs(cfg) for _ in range(cfg.superblock)],
+                "mlp": [_mlp_specs(cfg) for _ in range(cfg.superblock)]}
+    if fam == "moe":
+        return {"attn": A.mla_specs(cfg), "moe": M.moe_specs(cfg)}
     return {"mamba": [S.mamba2_specs(cfg) for _ in range(cfg.superblock)]}
 
 
 def param_specs(cfg):
     """The parameter tree: ``blocks`` is a list with one entry per block
-    (a layer, or a hybrid superblock)."""
+    (a layer, or a hybrid or gemma3 superblock)."""
     _check_family(cfg)
     d = cfg.d_model
     p = {"embed": L.embed_specs(cfg.vocab_size, d, cfg.tie_embeddings),
          "final_ln": Spec((d,), ("embed",), "zeros"),
          "blocks": [_block_specs(cfg) for _ in range(cfg.n_superblocks)]}
+    if cfg.family == "moe" and cfg.first_dense_layers:
+        p["prefix"] = {
+            f"l{i}": {"attn": A.mla_specs(cfg), "mlp": _mlp_specs(cfg)}
+            for i in range(cfg.first_dense_layers)}
     if cfg.family == "hybrid":
         p["shared"] = {"attn": A.gqa_specs(cfg), "mlp": _mlp_specs(cfg)}
+    if cfg.mtp:
+        p["mtp"] = {"proj": Spec((2 * d, d), ("embed", "embed2")),
+                    "attn": A.mla_specs(cfg), "mlp": _mlp_specs(cfg),
+                    "ln": Spec((d,), ("embed",), "zeros")}
     return p
 
 
 def cache_specs(cfg, B: int, T: int):
     _check_family(cfg)
-    if cfg.family == "dense":
+    fam = cfg.family
+    if fam == "dense":
         one = lambda: {"attn": A.cache_spec_gqa(cfg, B, T)}  # noqa: E731
+    elif fam == "gemma3":
+        one = lambda: {  # noqa: E731
+            "local": [A.cache_spec_gqa(cfg, B, T, window=cfg.sliding_window)
+                      for _ in range(cfg.superblock - 1)],
+            "global": A.cache_spec_gqa(cfg, B, T)}
+    elif fam == "moe":
+        c = {"scan": [{"attn": A.cache_spec_mla(cfg, B, T)}
+                      for _ in range(cfg.n_superblocks)]}
+        if cfg.first_dense_layers:
+            c["prefix"] = {f"l{i}": A.cache_spec_mla(cfg, B, T)
+                           for i in range(cfg.first_dense_layers)}
+        return c
     else:
         one = lambda: {  # noqa: E731
             "mamba": [S.mamba2_cache_spec(cfg, B)
@@ -96,18 +136,22 @@ def cache_specs(cfg, B: int, T: int):
 
 
 # ---------------------------------------------------------------------------
-# Blocks
+# Blocks: forward(cfg, x, shared, want_cache) -> (x, cache | None, aux) and
+# step(cfg, x, shared, cache, pos) -> (x, cache); ``shared`` is the hybrid
+# family's weight-tied block, unused by the others
 # ---------------------------------------------------------------------------
+_NO_AUX = 0.0
+
+
 class DenseBlock(Params):
-    """{attn, mlp}: one GQA layer, then its MLP (``shared`` is unused: the
-    blocks of both families take the same arguments)."""
+    """{attn, mlp}: one GQA layer, then its MLP."""
 
     def forward(self, cfg, x, shared=None, want_cache=False):
         y, c = A.gqa_fwd(self["attn"], x, cfg, theta=cfg.rope_theta,
                          window=cfg.sliding_window, want_cache=want_cache)
         x = x + y
         x = x + _mlp_fwd(self["mlp"], x, cfg)
-        return x, ({"attn": c} if want_cache else None)
+        return x, ({"attn": c} if want_cache else None), _NO_AUX
 
     def step(self, cfg, x, shared, cache, pos):
         y, c = A.gqa_step(self["attn"], x, cfg, cache["attn"], pos,
@@ -130,7 +174,8 @@ class HybridBlock(Params):
                          want_cache=want_cache)
         x = x + y
         x = x + _mlp_fwd(shared["mlp"], x, cfg)
-        return x, ({"mamba": mcs, "shared": c} if want_cache else None)
+        return x, ({"mamba": mcs, "shared": c} if want_cache else None), \
+            _NO_AUX
 
     def step(self, cfg, x, shared, cache, pos):
         mcs = []
@@ -145,20 +190,104 @@ class HybridBlock(Params):
         return x, {"mamba": mcs, "shared": c}
 
 
+class PrefixBlock(Params):
+    """{attn (MLA), mlp}: one of the MoE family's first dense layers; its
+    cache is the MLA latent cache itself."""
+
+    def forward(self, cfg, x, shared=None, want_cache=False):
+        y, c = A.mla_fwd(self["attn"], x, cfg, want_cache=want_cache)
+        x = x + y
+        x = x + _mlp_fwd(self["mlp"], x, cfg)
+        return x, c, _NO_AUX
+
+    def step(self, cfg, x, shared, cache, pos):
+        y, c = A.mla_step(self["attn"], x, cfg, cache, pos)
+        x = x + y
+        x = x + _mlp_fwd(self["mlp"], x, cfg)
+        return x, c
+
+
+class MoEBlock(Params):
+    """{attn (MLA), moe}; returns the MoE layer's aux loss."""
+
+    def forward(self, cfg, x, shared=None, want_cache=False):
+        y, c = A.mla_fwd(self["attn"], x, cfg, want_cache=want_cache)
+        x = x + y
+        y, aux = M.moe_fwd(self["moe"], x, cfg)
+        return x + y, ({"attn": c} if want_cache else None), aux
+
+    def step(self, cfg, x, shared, cache, pos):
+        y, c = A.mla_step(self["attn"], x, cfg, cache["attn"], pos)
+        x = x + y
+        y, _ = M.moe_fwd(self["moe"], x, cfg)
+        return x + y, {"attn": c}
+
+
+class Gemma3Block(Params):
+    """{attn: [superblock x GQA], mlp: [superblock x MLP]}: the last layer
+    global (``rope_theta_global``, no window), the others local
+    (``rope_theta``, ``sliding_window``)."""
+
+    def _layers(self, cfg):
+        n = cfg.superblock
+        for i, (ap, mp) in enumerate(zip(self["attn"], self["mlp"])):
+            glob = i == n - 1
+            yield ap, mp, glob, (cfg.rope_theta_global if glob
+                                 else cfg.rope_theta), \
+                (0 if glob else cfg.sliding_window)
+
+    def forward(self, cfg, x, shared=None, want_cache=False):
+        locals_, glob_c = [], None
+        for ap, mp, glob, theta, win in self._layers(cfg):
+            y, c = A.gqa_fwd(ap, x, cfg, theta=theta, window=win,
+                             want_cache=want_cache)
+            x = x + y
+            x = x + _mlp_fwd(mp, x, cfg)
+            if glob:
+                glob_c = c
+            else:
+                locals_.append(c)
+        cache = {"local": locals_, "global": glob_c} if want_cache else None
+        return x, cache, _NO_AUX
+
+    def step(self, cfg, x, shared, cache, pos):
+        local_c = iter(cache["local"])
+        out = {"local": []}
+        for ap, mp, glob, theta, win in self._layers(cfg):
+            ci = cache["global"] if glob else next(local_c)
+            y, c = A.gqa_step(ap, x, cfg, ci, pos, theta=theta, window=win)
+            x = x + y
+            x = x + _mlp_fwd(mp, x, cfg)
+            if glob:
+                out["global"] = c
+            else:
+                out["local"].append(c)
+        return x, out
+
+
+_BLOCK = {"dense": DenseBlock, "hybrid": HybridBlock, "moe": MoEBlock,
+          "gemma3": Gemma3Block}
+
+
 class LM(nn.Module):
     """The parameters of one model: ``embed``, ``final_ln``, ``blocks``
-    (``DenseBlock`` or ``HybridBlock`` each) and, for the hybrid family,
-    ``shared``."""
+    (one block module each) and, where the family has them, ``prefix``
+    (the MoE family's dense layers, ``PrefixBlock``s by name), ``shared``
+    (the hybrid family's tied block) and ``mtp``."""
 
     def __init__(self, cfg, tree: dict):
         super().__init__()
         _check_family(cfg)
         self.cfg = cfg
-        block = DenseBlock if cfg.family == "dense" else HybridBlock
+        block = _BLOCK[cfg.family]
         self.embed = Params(tree["embed"])
         self.final_ln = nn.Parameter(tree["final_ln"], requires_grad=False)
         self.blocks = nn.ModuleList(block(b) for b in tree["blocks"])
+        self.prefix = nn.ModuleDict(
+            {k: PrefixBlock(v) for k, v in tree["prefix"].items()}) \
+            if "prefix" in tree else None
         self.shared = Params(tree["shared"]) if "shared" in tree else None
+        self.mtp = Params(tree["mtp"]) if "mtp" in tree else None
 
     @property
     def dtype(self) -> torch.dtype:
@@ -181,18 +310,32 @@ def init(cfg, generator: torch.Generator, dtype=torch.bfloat16,
 # ---------------------------------------------------------------------------
 # Whole-model forward
 # ---------------------------------------------------------------------------
+def _cache_tree(cfg, prefix_caches, caches):
+    if cfg.family != "moe":
+        return caches
+    out = {"scan": caches}
+    if prefix_caches:
+        out["prefix"] = prefix_caches
+    return out
+
+
 def forward(params, cfg, batch, *, want_cache=False, return_hidden=False):
     """Full-sequence forward. Returns (logits | hidden, aux, cache|None)."""
     x = L.embed(params["embed"], batch["tokens"], cfg.d_model)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    prefix = {}
+    for name, bp in (params.get("prefix") or {}).items():
+        x, prefix[name], _ = bp(cfg, x, None, want_cache)
     shared = params.get("shared")
     caches = []
     for bp in params["blocks"]:
-        x, c = bp(cfg, x, shared, want_cache)
+        x, c, a = bp(cfg, x, shared, want_cache)
+        aux = aux + a
         caches.append(c)
     x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
     logits = x if return_hidden else L.unembed(params["embed"], x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return logits, aux, (caches if want_cache else None)
+    return logits, aux, (_cache_tree(cfg, prefix, caches) if want_cache
+                         else None)
 
 
 def prefill(params, cfg, batch):
@@ -208,13 +351,17 @@ def decode_step(params, cfg, token, pos, cache):
     """token: (B,1) int; pos: int. Returns (logits (B,V), cache), the cache
     updated in place."""
     x = L.embed(params["embed"], token, cfg.d_model)
+    prefix = {}
+    for name, bp in (params.get("prefix") or {}).items():
+        x, prefix[name] = bp.step(cfg, x, None, cache["prefix"][name], pos)
     shared = params.get("shared")
     new = []
-    for bp, ci in zip(params["blocks"], cache):
+    for bp, ci in zip(params["blocks"],
+                      cache["scan"] if cfg.family == "moe" else cache):
         x, c = bp.step(cfg, x, shared, ci, pos)
         new.append(c)
     x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
-    return L.unembed(params["embed"], x)[:, 0], new
+    return L.unembed(params["embed"], x)[:, 0], _cache_tree(cfg, prefix, new)
 
 
 def serve_step(params, cfg, token, pos, cache):

@@ -48,8 +48,10 @@ def spec_map(fn, tree):
 def init_params(tree, generator: torch.Generator, dtype, device=None):
     """Tensors for a tree of specs: zeros, ones, or N(0, 0.02^2) /
     N(0, 0.006^2) drawn in fp32 and cast, each in the spec's dtype or
-    ``dtype``.  Leaves are drawn in the tree's order from ``generator``,
-    which must live on ``device``."""
+    ``dtype`` (so an int8 or fp32 leaf keeps its type in a bf16 tree; an
+    int8 "normal" leaf casts to all zeros, as the reference's does).
+    Leaves are drawn in the tree's order from ``generator``, which must
+    live on ``device``."""
     def one(s: Spec):
         dt = s.dtype or dtype
         if s.init == "zeros":
@@ -58,7 +60,7 @@ def init_params(tree, generator: torch.Generator, dtype, device=None):
             return torch.ones(s.shape, dtype=dt, device=device)
         x = torch.randn(s.shape, generator=generator, dtype=torch.float32,
                         device=device)
-        return (x * _SCALE[s.init]).to(dt)
+        return x.mul_(_SCALE[s.init]).to(dt)
 
     return spec_map(one, tree)
 

@@ -304,17 +304,23 @@ def test_configs_copy_the_reference(arch):
 
 
 def test_unported_families_raise():
+    """What stays unported raises, naming its ROADMAP item: the xLSTM
+    (ssm) and audio families, the int8 KV cache (GQA and MLA) and
+    cross-attention."""
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        pcb.get("deepseek-v3-671b")
-    moe = pcb.smoke("tinyllama-1.1b").replace(family="moe")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        pm.param_specs(moe)
+        pcb.get("xlstm-1.3b")
+    for family in ("ssm", "audio"):
+        other = pcb.smoke("tinyllama-1.1b").replace(family=family)
+        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+            pm.param_specs(other)
     cfg = pcb.smoke("tinyllama-1.1b")
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         PA.cache_spec_gqa(cfg.replace(kv_cache_dtype="int8"), 1, 4)
+    mla = pcb.smoke("deepseek-v2-236b").replace(kv_cache_dtype="int8")
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        PA.gqa_fwd({}, torch.zeros(1, 4, cfg.d_model), cfg, theta=1e4,
-                   window=2)
+        PA.cache_spec_mla(mla, 1, 4)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        PA.cross_fwd({}, torch.zeros(1, 4, cfg.d_model), {}, cfg)
 
 
 def _dtype_name(dt):
