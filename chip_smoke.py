@@ -46,17 +46,20 @@ Phases, each printing its lines; any failure exits non-zero:
    shapes (GQA, MQA, bidirectional, window 128, S = 384, 192/128 head
    dims, D = 80, Sq < Sk), the kernel's edges (D = 240 with window 1024,
    192/128 at S = 1024, Sq = Sk = 1000 as strided views), every (D, Dv)
-   pair the kernel is instantiated for at S = 136, and the five
+   pair the kernel is instantiated for at S = 136, and the ten
    serving shapes, (8, 32, 2048, 80) MHA, (8, 32/4, 2048, 64) GQA,
-   (8, 128, 2048, 192/128) MLA and gemma3's (8, 16/8, 2048, 240) with
-   window 1024 (local) and without (global), these as the model's strided
+   (8, 128, 2048, 192/128) MLA, gemma3's (8, 16/8, 2048, 240) with
+   window 1024 (local) and without (global), whisper's non-causal encoder
+   (8, 8, 1500, 64) and cross attention (416 queries over 1500 keys),
+   codeqwen's (8, 32, 2048, 128) MHA, starcoder2's (8, 48/4, 2048, 128)
+   and internvl2's (8, 48/8, 2048, 128), these as the model's strided
    (B, S, H, D) views and run twice, the two outputs bit-identical; bf16
    outputs are held element by element, relative to one bf16 ulp and the
    row's RMS, and every check must also reject a planted 5 % error on the
    later positions; then the kernel's, the plain version's and
    ``F.scaled_dot_product_attention``'s (with the window's mask written
-   out) device times at the serving shapes beside the bound (the kept
-   (query, key) pairs' flops), with each one's share of it;
+   out, or no mask) device times at the serving shapes beside the bound
+   (the kept (query, key) pairs' flops), with each one's share of it;
 6. SSD kernel vs plain: in fp32 and bf16, on the CPU tests' shapes, the
    kernel's edges (one chunk; a chunk of 100; P = 8 with N = 4; the smoke
    config, P = N = 16 and L = 32, as strided views; one sequence of one
@@ -83,28 +86,40 @@ Phases, each printing its lines; any failure exits non-zero:
 10. LM main path: ``run_lm`` serving full-width ``zamba2-2.7b`` and then
    ``tinyllama-1.1b`` (weights drawn on the card from a seeded generator),
    batch 8, prompt 2048, 32 generated tokens, in bf16 and then in fp32;
-   then in bf16 ``deepseek-v2-236b`` and ``deepseek-v3-671b`` cut to 4
-   layers with int8 experts (quantised from bf16 draws) and the whole
-   ``gemma3-12b`` (``LM_CUTS``); each run must launch the SSD kernel once
-   per Mamba-2 layer and the flash kernel once per attention application
-   (gemma3: 40 windowed, 8 global); the first call of each kernel and of
-   each layer holding one in a prefill (``gqa_fwd``, gemma3's first local
-   and first global one, ``mla_fwd``, ``mamba2_fwd``) is rerun on its
-   recorded inputs with the plain versions and with a planted fault, and
-   must agree with the first and reject the second; the prefill logits
-   and the teacher-forced decode logits are held against the same model
-   run with the kernels' plain versions (bf16 runs against an fp32 run of
-   the same weights: the bf16 weights move to the host first, so the two
-   copies never share the card), and the
+   then in bf16 ``deepseek-v2-236b`` (14 layers) and ``deepseek-v3-671b``
+   (6 layers), both with int8 experts quantised from bf16 draws, the whole
+   ``gemma3-12b``, ``codeqwen1.5-7b`` and ``starcoder2-15b``,
+   ``internvl2-26b`` cut to 38 layers (with 256 random patches),
+   ``whisper-base`` (1500 random frames, prompt 416, so 448 positions)
+   and ``xlstm-1.3b`` (``LM_CUTS``, ``LM_PROMPTS``); each run must launch
+   the SSD kernel once per Mamba-2 layer and the flash kernel once per
+   attention application (gemma3: 40 windowed, 8 global; whisper: 6
+   causal, 12 non-causal; xlstm none); the first call of each kernel and
+   of each layer holding one in a prefill (``gqa_fwd``, gemma3's first
+   local and first global one, whisper's first non-causal encoder one,
+   ``cross_fwd``, ``mla_fwd``, ``mamba2_fwd``) is rerun on its recorded
+   inputs with the plain versions and with a planted fault, and must
+   agree with the first and reject the second (the xLSTM layers, which
+   hold no kernel, ``mlstm_fwd`` and ``slstm_fwd``, against the same call
+   in fp32); the prefill logits and the teacher-forced decode logits are
+   held against the same model run with the kernels' plain versions (bf16
+   runs against an fp32 run of the same weights: the bf16 weights move to
+   the host first, so the two copies never share the card), and the
    token agreement is printed with the prefill time, decode rate and
    peak memory from ``run_lm``'s own line; then where the time goes: the
    teacher-forced run's prefill and decode device time split by kernel
-   (profiler traces) against ``run_lm``'s wall times;
+   (profiler traces) against ``run_lm``'s wall times, and for xlstm the
+   wall time of its sLSTM scans; last, ``codeqwen1.5-7b`` and
+   ``deepseek-v2-236b`` once more with ``kv_cache_dtype="int8"``: served
+   by ``run_lm``, then their teacher-forced decode held against the full
+   forward within 2e-2 of max |logit| with fp32 weights, and in bf16 at
+   most 1.5x as far from it as the decode on the bf16 cache, with the
+   cache's GiB against the bf16 cache's;
 11. the LM entry point as called with no arguments: ``run_lm(arch)`` for
-   each of the five archs, which serves the smoke config (head dim 16,
+   each of the ten archs, which serves the smoke config (head dim 16,
    or MLA's 24 / 16, which the wrapper pads to the kernel's 32 / 32) in
    bf16 on the card; its tokens must be in range and the flash kernel
-   must have launched.
+   must have launched once per attention application (xlstm: none).
 Each run of a main path sets the kernels' launch counts to 0 just before
 it and reads them just after.
 
@@ -142,15 +157,28 @@ SHARDS = 4
 DTYPES = ("fp32", "bf16", "int8")
 LM_DTYPES = ("bf16", "fp32")
 LM_ARCHS = ("zamba2-2.7b", "tinyllama-1.1b")
-# served in bf16 only, each cut only where 80 GB forces it: DeepSeek-V2 to
-# 4 layers (1 dense + 3 MoE), DeepSeek-V3 to 4 (3 dense + 1 MoE), both
-# with int8 experts quantised from bf16 draws; gemma3-12b whole
-LM_NEW_ARCHS = ("deepseek-v2-236b", "deepseek-v3-671b", "gemma3-12b")
-LM_CUTS = {"deepseek-v2-236b": {"n_layers": 4,
+# served in bf16 only, each cut only where 80 GB forces it: as many layers
+# as leave the fp32 reference run of the same weights about 8 GiB under the
+# card's 79.18 GiB (PERF.md §4 sizes each cut from the bytes a layer added
+# to that run's peak on the card).  DeepSeek-V2 to 14 layers (1 dense + 13
+# MoE) and DeepSeek-V3 to 6 (3 dense + 3 MoE), both with int8 experts
+# quantised from bf16 draws; internvl2-26b to 38 of its 48 layers (its
+# fp32 copy alone is 74 GiB); the others whole
+LM_BF16_ARCHS = ("deepseek-v2-236b", "deepseek-v3-671b", "gemma3-12b",
+                 "codeqwen1.5-7b", "starcoder2-15b", "internvl2-26b",
+                 "whisper-base", "xlstm-1.3b")
+LM_CUTS = {"deepseek-v2-236b": {"n_layers": 14,
                                 "expert_weights_dtype": "int8"},
-           "deepseek-v3-671b": {"n_layers": 4,
-                                "expert_weights_dtype": "int8"}}
+           "deepseek-v3-671b": {"n_layers": 6,
+                                "expert_weights_dtype": "int8"},
+           "internvl2-26b": {"n_layers": 38}}
 LM_BATCH, LM_PROMPT, LM_GEN = 8, 2048, 32
+# whisper's prompt: prompt + generated tokens = 448, its decoder context
+LM_PROMPTS = {"whisper-base": 416}
+# served once more with kv_cache_dtype="int8": decode held against the full
+# forward within the reference's bound (tests/test_archs.py)
+LM_INT8_KV = ("codeqwen1.5-7b", "deepseek-v2-236b")
+INT8_KV_REL = 2e-2
 # flash kernel vs plain (flash_err): in fp32 the max abs error, as the
 # outputs agree to rounding; in bf16 each output is rounded to bf16 and the
 # kernel rounds its probabilities before normalising them, the plain version
@@ -173,10 +201,18 @@ PLANT = 1.05
 SSD_REL = 1e-4
 # (a gqa_fwd call with a window, gemma3's local layers, is checked as
 # "gqa_fwd[window]", a flash call with one as "flash_attention[window]")
+# (a gqa_fwd call without the causal mask, whisper's encoder, as
+# "gqa_fwd[noncausal]").  The xLSTM layers hold no kernel: their first
+# calls in bf16 are held against the same call in fp32 (weights and
+# inputs upcast), and the planted fault goes into the layer's output
 LAYER_TOL = {("gqa_fwd", "fp32"): 1e-5, ("gqa_fwd", "bf16"): 7.5e-3,
              ("gqa_fwd[window]", "bf16"): 7.5e-3,
+             ("gqa_fwd[noncausal]", "bf16"): 7.5e-3,
+             ("cross_fwd", "bf16"): 7.5e-3,
              ("mla_fwd", "bf16"): 7.5e-3,
+             ("mlstm_fwd", "bf16"): 2e-2, ("slstm_fwd", "bf16"): 2e-2,
              ("mamba2_fwd", "fp32"): 1e-6, ("mamba2_fwd", "bf16"): 1e-5}
+NO_KERNEL = ("mlstm_fwd", "slstm_fwd")
 # kernels vs plain through the whole model, logits relative to max |logit|:
 # in fp32 the two agree to rounding (LM_REL); in bf16 two roundings of a
 # 54-layer model with random weights drift apart by a few percent, so each
@@ -188,6 +224,7 @@ LM_BF16_RATIO = 1.5
 CELLS = 1024            # cells of one N_BIG shard at the index's sqrt(N)
 NPROBE = 8              # the serving path's probes per query
 DEV = "cuda"
+T_START = time.perf_counter()
 
 
 def fail(msg: str) -> int:
@@ -1165,13 +1202,21 @@ def flash_head_dim_shapes(FA):
 
 
 # the serving shapes: zamba2's shared block (MHA), tinyllama (GQA),
-# DeepSeek's MLA (192 / 128, 128 heads) and gemma3's local (window 1024)
-# and global layers (D = 240, 16 heads over 8)
+# DeepSeek's MLA (192 / 128, 128 heads), gemma3's local (window 1024)
+# and global layers (D = 240, 16 heads over 8), whisper's encoder
+# (non-causal, S = 1500: a ragged last key tile) and cross attention
+# (non-causal, 416 queries over 1500 keys), codeqwen (MHA, D = 128),
+# starcoder2 (48 heads over 4) and internvl2 (48 over 8)
 FLASH_SERVE = {"mha": (8, 32, 32, 2048, 2048, 80, 80, True, 0),
                "gqa": (8, 32, 4, 2048, 2048, 64, 64, True, 0),
                "mla": (8, 128, 128, 2048, 2048, 192, 128, True, 0),
                "local": (8, 16, 8, 2048, 2048, 240, 240, True, 1024),
-               "global": (8, 16, 8, 2048, 2048, 240, 240, True, 0)}
+               "global": (8, 16, 8, 2048, 2048, 240, 240, True, 0),
+               "enc": (8, 8, 8, 1500, 1500, 64, 64, False, 0),
+               "cross": (8, 8, 8, 416, 1500, 64, 64, False, 0),
+               "mha128": (8, 32, 32, 2048, 2048, 128, 128, True, 0),
+               "gqa12": (8, 48, 4, 2048, 2048, 128, 128, True, 0),
+               "vlm": (8, 48, 8, 2048, 2048, 128, 128, True, 0)}
 # (Bt, L, H, P, N, chunk): the CPU tests' SSD shapes, then zamba2's
 SSD_SHAPES = [(1, 128, 1, 16, 8, 64), (2, 256, 3, 32, 16, 128),
               (1, 512, 2, 64, 32, 256), (2, 64, 4, 8, 8, 64),
@@ -1302,19 +1347,22 @@ def phase_flash(torch, FA):
               "serving shapes bit-identical over two runs")
         for name, shape in FLASH_SERVE.items():
             args = [flash_inputs(torch, shape, dtype, gen, True)]
-            gqa, window = shape[1] != shape[2], shape[8]
-            # the library: causal, or with the window's mask written out
-            lib_mask = dict(is_causal=True) if not window else dict(
-                attn_mask=FA._masks(shape[3], shape[4], True, window, DEV))
+            gqa, causal, window = shape[1] != shape[2], shape[7], shape[8]
+            # the library: causal, with the window's mask written out, or
+            # with no mask
+            lib_mask = dict(attn_mask=FA._masks(
+                shape[3], shape[4], True, window, DEV)) if window else \
+                dict(is_causal=causal)
             kms, kcall = timed(torch, lambda q, k, v: FA.flash_attention_cuda(
-                q, k, v, window=window), args, iters=5)
+                q, k, v, causal=causal, window=window), args, iters=5)
             pms, _ = timed(torch, lambda q, k, v: FA.flash_attention_plain(
-                q, k, v, window=window), args, iters=3)
+                q, k, v, causal=causal, window=window), args, iters=3)
             lms, _ = timed(torch, lambda q, k, v: F.scaled_dot_product_attention(
                 q, k, v, enable_gqa=gqa, **lib_mask), args, iters=5)
             bms, by = work_bound(dtype, *flash_work(shape, dtype))
             timings[(dtype, name)] = (kms, pms, lms, bms, by)
-            print(f"[flash] {dtype} {name} {shape[:7]} window {window}: "
+            print(f"[flash] {dtype} {name} {shape[:7]} "
+                  f"{'causal' if causal else 'non-causal'} window {window}: "
                   f"kernel_ms={kms:.4f} "
                   f"(per call {kcall:.4f}) plain_ms={pms:.4f} "
                   f"library_ms={lms:.4f} bound_ms={bms:.4f} ({by}); the "
@@ -1525,11 +1573,19 @@ def planted_kernels(ops):
     return Kernels(ops, lambda *a, **kw: planted(flash(*a, **kw)), bad_ssd)
 
 
+def call_key(name, kw):
+    """A call's key: the name, with "[window]" after it for a call with a
+    sliding window (gemma3's local layers), "[noncausal]" for one without
+    the causal mask (whisper's encoder and cross attention)."""
+    if kw.get("window"):
+        return f"{name}[window]"
+    return f"{name}[noncausal]" if kw.get("causal") is False else name
+
+
 class FirstCalls:
     """Within the block, keeps the arguments of the first call of each
     ``module.name`` of ``fns`` (a list of (module, name)) and counts the
-    calls, by key: the name, with "[window]" after it for a call with a
-    sliding window (gemma3's local layers)."""
+    calls, by ``call_key``."""
 
     def __init__(self, fns):
         self.fns, self.calls, self.counts = fns, {}, {}
@@ -1538,7 +1594,7 @@ class FirstCalls:
         self.saved = [getattr(mod, name) for mod, name in self.fns]
         for (mod, name), orig in zip(self.fns, self.saved):
             def call(*a, _fn=orig, _mod=mod, _name=name, **kw):
-                key = f"{_name}[window]" if kw.get("window") else _name
+                key = call_key(_name, kw)
                 self.calls.setdefault(key, (_mod, _name, a, kw))
                 self.counts[key] = self.counts.get(key, 0) + 1
                 return _fn(*a, **kw)
@@ -1563,31 +1619,46 @@ def first_call_tol(key, name, dtype):
     return SSD_REL if name == "mamba2_ssd" else LAYER_TOL[(key, dtype)]
 
 
+def _output(got):
+    """A layer's output: the first of (y, cache), or y itself."""
+    return got[0] if isinstance(got, tuple) else got
+
+
 def first_call_check(torch, ops, FA, SSD, calls, dtype):
     """Each recorded call rerun on its recorded inputs with the kernels,
     with their plain versions and with a planted fault: {key: (error,
     planted error, tolerance)}.  The flash kernel's output is measured by
     ``flash_err``, the SSD's y and state and a layer's output by their
     relative Frobenius error (``rel_fro``), each against the plain
-    versions' run."""
+    versions' run.  A layer with no kernel (``NO_KERNEL``) is held against
+    the same call in fp32, its weights and inputs upcast, and the planted
+    fault is made in its output."""
     out = {}
     for key, (mod, name, a, kw) in calls.items():
-        def run():
+        def run(args=a):
             with torch.inference_mode():
-                return getattr(mod, name)(*a, **kw)
+                return getattr(mod, name)(*args, **kw)
 
         def err(got):
             if name == "flash_attention":
                 return flash_err(torch, got, want, dtype)
             if name == "mamba2_ssd":
                 return max(rel_fro(torch, g, w) for g, w in zip(got, want))
-            return rel_fro(torch, got[0], want[0])
+            return rel_fro(torch, _output(got), _output(want))
 
-        with plain_kernels(ops, FA, SSD):
-            want = run()
-        e = err(run())
-        with planted_kernels(ops):
-            e_bad = err(run())
+        if name in NO_KERNEL:
+            p, x, cfg = a
+            want = run((dict((n, t.float()) for n, t in
+                             p.named_parameters()), x.float(), cfg))
+            got = _output(run())
+            e = err(got)
+            e_bad = err(planted(got.clone()[:, None])[:, 0])
+        else:
+            with plain_kernels(ops, FA, SSD):
+                want = run()
+            e = err(run())
+            with planted_kernels(ops):
+                e_bad = err(run())
         out[key] = (e, e_bad, first_call_tol(key, name, dtype))
         del want
     return out
@@ -1616,10 +1687,17 @@ def lm_model(mdl, cfg, dtype, gen):
         return mdl.init(cfg, gen, dtype, DEV)
     from repro_torch.models import moe
     from repro_torch.models.params import init_params
-    tree = init_params(mdl.param_specs(cfg.replace(
-        expert_weights_dtype="bf16")), gen, dtype, DEV)
-    for block in tree["blocks"]:
-        block["moe"] = moe.quantize_expert_weights(block["moe"])
+    specs = mdl.param_specs(cfg.replace(expert_weights_dtype="bf16"))
+    tree = {}
+    for key, sub in specs.items():           # the draws in the tree's order
+        if key != "blocks":
+            tree[key] = init_params(sub, gen, dtype, DEV)
+            continue
+        tree[key] = []
+        for block in sub:
+            b = init_params(block, gen, dtype, DEV)
+            b["moe"] = moe.quantize_expert_weights(b["moe"])
+            tree[key].append(b)
     return mdl.LM(cfg, tree)
 
 
@@ -1645,30 +1723,32 @@ def device_split(torch, fn):
         fn()
         torch.cuda.synchronize()
     split = {"total": 0.0, "flash": 0.0, "ssd": 0.0}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+    # the raw device events: ``key_averages()`` would first build a Python
+    # event tree, tens of seconds for the xLSTM prefill's many small kernels
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
             continue
-        us = getattr(e, "self_device_time_total", None) or \
-            getattr(e, "self_cuda_time_total", 0.0)
-        split["total"] += us / 1e3
+        ms, name = e.duration_ns() / 1e6, e.name()
+        split["total"] += ms
         for key, tags in (("flash", ("flash_bf16_kernel", "flash_f32_kernel")),
                           ("ssd", ("ssd_kernel", "ssd_chunk_state",
                                    "ssd_state_pass", "ssd_chunk_scan"))):
-            if any(tag in e.key for tag in tags):
-                split[key] += us / 1e3
+            if any(tag in name for tag in tags):
+                split[key] += ms
     return split
 
 
-def teacher_forced(torch, serve, mdl, params, cfg, tokens, toks, split=None):
+def teacher_forced(torch, serve, mdl, params, cfg, tokens, toks, split=None,
+                   inputs=None):
     """Prefill logits, then the logits of each decode step fed the served
-    tokens ``toks``: a list of (B, V) fp32 tensors.  ``split``, a dict,
-    gets the prefill's and the decode steps' device ms, each split by
-    kernel (profiler traces)."""
+    tokens ``toks``: a list of (B, V) fp32 tensors.  ``inputs``: the
+    family's patches or frames.  ``split``, a dict, gets the prefill's and
+    the decode steps' device ms, each split by kernel (profiler traces)."""
     S, box, out = tokens.shape[1], {}, []
 
     def prefill():
         box["last"], box["cache"] = serve.prefill_cache(
-            params, cfg, tokens, S + toks.shape[1])
+            params, cfg, tokens, S + toks.shape[1], inputs)
 
     def decode():
         cache = box["cache"]
@@ -1686,24 +1766,90 @@ def teacher_forced(torch, serve, mdl, params, cfg, tokens, toks, split=None):
     return [box["last"].float()] + out
 
 
-def served(torch, serve, cfg, params, tokens):
+def served(torch, serve, cfg, params, tokens, inputs):
     """``run_lm`` on the card: (tokens, prefill ms, decode ms per step),
     the times read from the line ``run_lm`` prints."""
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         toks = serve.run_lm(cfg=cfg, params=params, tokens=tokens,
-                            gen=LM_GEN, device=DEV)
+                            inputs=inputs, gen=LM_GEN, device=DEV)
     line = buf.getvalue()
     print(line, end="")
     m = re.search(r"prefill in ([0-9.]+) ms \(([0-9.]+) tok/s", line)
     return toks, float(m[1]), LM_BATCH / float(m[2]) * 1e3
 
 
+class WallTime:
+    """Within the block, the wall seconds of every call of ``mod.name``
+    (the card synchronised at both ends), summed in ``seconds``."""
+
+    def __init__(self, torch, mod, name):
+        self.torch, self.mod, self.name, self.seconds = torch, mod, name, 0.0
+
+    def __enter__(self):
+        self.saved = getattr(self.mod, self.name)
+
+        def call(*a, **kw):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.saved(*a, **kw)
+            self.torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            return out
+        setattr(self.mod, self.name, call)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.saved)
+
+
+def flash_calls(cfg):
+    """{call key: count} of the flash calls one prefill of ``cfg`` makes:
+    one per attention application (``call_key``)."""
+    fam, nsb = cfg.family, cfg.n_superblocks
+    if fam == "ssm":
+        return {}
+    if fam == "hybrid":
+        return {"flash_attention": nsb}
+    if fam == "gemma3":
+        return {"flash_attention": nsb,
+                "flash_attention[window]": nsb * (cfg.superblock - 1)}
+    if fam == "audio":
+        return {"flash_attention": cfg.n_layers,
+                "flash_attention[noncausal]": cfg.encoder_layers
+                + cfg.n_layers}
+    return {"flash_attention": cfg.n_layers}
+
+
+def first_fns(cfg):
+    """The (module, name) pairs whose first call in a prefill is checked:
+    each kernel the family runs and each layer that holds one (the xLSTM
+    layers, which hold none, against fp32)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention, ssm, xlstm
+    if cfg.family == "ssm":
+        return [(xlstm, "mlstm_fwd"), (xlstm, "slstm_fwd")]
+    fns = [(ops, "flash_attention"),
+           (attention, "mla_fwd" if cfg.attn_kind == "mla" else "gqa_fwd")]
+    if cfg.family == "audio":
+        fns.append((attention, "cross_fwd"))
+    if cfg.family == "hybrid":
+        fns += [(ops, "mamba2_ssd"), (ssm, "mamba2_fwd")]
+    return fns
+
+
+def lm_batch(sp, cfg, arch, gen):
+    """(tokens, modality inputs) of ``arch``'s served batch."""
+    b = sp.make_batch(cfg, LM_PROMPTS.get(arch, LM_PROMPT), LM_BATCH, gen,
+                      device=DEV)
+    return b.pop("tokens"), b
+
+
 def phase_lm(torch, serve, FA, SSD):
     launches = {f"{name}[{dtype}]": 0 for dtype in LM_DTYPES
                 for name in ("flash_attention", "mamba2_ssd")}
     runs = [(arch, dtype) for dtype in LM_DTYPES for arch in LM_ARCHS] + \
-        [(arch, "bf16") for arch in LM_NEW_ARCHS]
+        [(arch, "bf16") for arch in LM_BF16_ARCHS]
     for arch, dtype in runs:
         n_fa, n_ssd = lm_serve_and_check(torch, serve, FA, SSD, arch, dtype)
         launches[f"flash_attention[{dtype}]"] += n_fa
@@ -1712,55 +1858,70 @@ def phase_lm(torch, serve, FA, SSD):
 
 
 def lm_serve_and_check(torch, serve, FA, SSD, arch, dtype):
-    """One arch in one dtype through ``run_lm`` and its checks (phase 10);
-    returns the served run's (flash, SSD) launches."""
+    """One arch in one dtype through ``run_lm`` and its checks (phase 10),
+    and for the archs of ``LM_INT8_KV`` the int8 KV cache's
+    (``int8_kv_check``); returns the served runs' (flash, SSD) launches."""
     from repro_torch.kernels import ops
     from repro_torch.launch import specs as sp
-    from repro_torch.models import attention, ssm
+    from repro_torch.models import attention, moe, xlstm
     from repro_torch.models import model as mdl
     cfg = lm_config(arch)
     t0 = time.perf_counter()
+    stages = {}                 # the check's own wall seconds, by stage
+
+    def stage(name):
+        torch.cuda.synchronize()
+        stages[name] = time.perf_counter() - t0 - sum(stages.values())
+
     gen = torch.Generator(device=DEV).manual_seed(0)
     params = lm_model(mdl, cfg, getattr(torch, TORCH_DTYPE[dtype]), gen)
-    tokens = sp.make_batch(cfg, LM_PROMPT, LM_BATCH, gen,
-                           device=DEV)["tokens"]
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    tokens, inputs = lm_batch(sp, cfg, arch, gen)
+    stage("weights")
     weights_gib = param_gib(params)
     gc.collect()        # earlier phases' cycles (a gallery) off the card
     torch.cuda.reset_peak_memory_stats()
-    FA.launches = SSD.launches = 0
-    toks, prefill_ms, step_ms = served(torch, serve, cfg, params, tokens)
-    n_fa, n_ssd = FA.launches, SSD.launches
+    with WallTime(torch, xlstm, "_slstm_scan") as scan:
+        FA.launches = SSD.launches = 0
+        toks, prefill_ms, step_ms = served(torch, serve, cfg, params, tokens,
+                                           inputs)
+        n_fa, n_ssd = FA.launches, SSD.launches
     peak = torch.cuda.max_memory_allocated() / 2**30
     n_mamba = cfg.n_layers if cfg.family == "hybrid" else 0
-    n_attn = cfg.n_superblocks if cfg.family == "hybrid" else cfg.n_layers
-    n_win = cfg.n_superblocks * (cfg.superblock - 1) \
-        if cfg.family == "gemma3" else 0
-    if (n_fa, n_ssd) != (n_attn, n_mamba):
+    want_calls = flash_calls(cfg)
+    if (n_fa, n_ssd) != (sum(want_calls.values()), n_mamba):
         raise AssertionError(f"lm {arch} {dtype}: launches flash={n_fa} "
-                             f"ssd={n_ssd}, want {n_attn} and {n_mamba}")
+                             f"ssd={n_ssd}, want "
+                             f"{sum(want_calls.values())} and {n_mamba}")
     if tuple(toks.shape) != (LM_BATCH, LM_GEN) or \
             int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
         raise AssertionError(f"lm {arch} {dtype}: tokens {tuple(toks.shape)}")
+    stage("served")
     # the kernels' teacher-forced run, traced, recording the inputs of the
     # first call of each kernel and of each layer holding one
     split = {}
-    first = [(ops, "flash_attention"),
-             (attention, "mla_fwd" if cfg.attn_kind == "mla" else "gqa_fwd")]
-    if n_mamba:
-        first += [(ops, "mamba2_ssd"), (ssm, "mamba2_fwd")]
-    with FirstCalls(first) as rec:
+    int8 = arch in LM_INT8_KV
+    with FirstCalls(first_fns(cfg)) as rec, \
+            int8_records(attention, moe, cfg, int8) as rec16:
         kern = teacher_forced(torch, serve, mdl, params, cfg, tokens, toks,
-                              split)
-    calls = (rec.counts.get("flash_attention", 0),
-             rec.counts.get("flash_attention[window]", 0))
-    if calls != (n_attn - n_win, n_win):
-        raise AssertionError(f"lm {arch} {dtype}: flash calls (global, "
-                             f"windowed) {calls}, want "
-                             f"{(n_attn - n_win, n_win)}")
-    with plain_kernels(ops, FA, SSD):
-        plain = teacher_forced(torch, serve, mdl, params, cfg, tokens, toks)
+                              split, inputs)
+    calls = {k: n for k, n in rec.counts.items()
+             if k.startswith("flash_attention")}
+    if calls != want_calls:
+        raise AssertionError(f"lm {arch} {dtype}: flash calls {calls}, "
+                             f"want {want_calls}")
+    stage("traced")
+    if want_calls or n_mamba:
+        with plain_kernels(ops, FA, SSD):
+            plain = teacher_forced(torch, serve, mdl, params, cfg, tokens,
+                                   toks, inputs=inputs)
+    else:
+        plain = kern            # no kernel runs: the plain run is this one
+    stage("plain")
+    if int8:
+        int8 = int8_kv_check(torch, serve, FA, mdl, params, cfg, tokens,
+                             toks, inputs, kern, rec16)
+        stage("int8")
+    del rec16
     for i, a in enumerate(kern):
         if not (bool(torch.isfinite(a).all()) and a.shape ==
                 (LM_BATCH, cfg.vocab_size)):
@@ -1768,6 +1929,7 @@ def lm_serve_and_check(torch, serve, FA, SSD, arch, dtype):
                                  "finite")
     firsts = first_call_check(torch, ops, FA, SSD, rec.calls, dtype)
     del rec
+    stage("first calls")
     for key, (e, e_bad, tol) in firsts.items():
         if not e <= tol < e_bad:
             raise AssertionError(
@@ -1783,16 +1945,18 @@ def lm_serve_and_check(torch, serve, FA, SSD, arch, dtype):
     else:
         # the two copies never share the card: the bf16 weights go to the
         # host, then come back as fp32 (int8 experts stay int8)
-        params.to("cpu")
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        p32 = params.to(DEV, torch.float32)
-        memory = (f"; fp32 copy {param_gib(p32):.2f} GiB, the bf16 weights "
-                  "on the host meanwhile")
-        truth = teacher_forced(torch, serve, mdl, p32, cfg, tokens, toks)
+        p32, memory = fp32_copy(torch, params)
+        with int8_records(attention, moe, cfg, int8) as rec32:
+            truth = teacher_forced(torch, serve, mdl, p32, cfg, tokens, toks,
+                                   inputs=inputs)
         memory += (f", fp32 run peak "
                    f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if int8:
+            int8_kv_fp32(torch, serve, mdl, p32, cfg, tokens, toks, inputs,
+                         truth, int8, rec32)
+        del rec32
         del p32
+        stage("fp32")
         err_k, err_p = max_rel(kern, truth), max_rel(plain, truth)
         check = (f"vs fp32 weights: kernels {err_k:.3g}, plain {err_p:.3g} "
                  f"(at most {LM_BF16_RATIO}x plain)")
@@ -1803,47 +1967,234 @@ def lm_serve_and_check(torch, serve, FA, SSD, arch, dtype):
     first_txt = ", ".join(
         f"{key} {e:.3g} (tolerance {tol}, planted fault {e_bad:.3g})"
         for key, (e, e_bad, tol) in firsts.items())
-    print(f"[lm] {arch} {dtype}: batch {LM_BATCH}, prompt {LM_PROMPT}, gen "
-          f"{LM_GEN}, {cfg.n_layers} layers, cuts: {lm_cuts(arch)}: "
-          f"launches flash={n_fa} ({n_win} windowed) ssd={n_ssd}; "
+    windowed = want_calls.get("flash_attention[window]", 0)
+    noncausal = want_calls.get("flash_attention[noncausal]", 0)
+    print(f"[lm] {arch} {dtype}: batch {LM_BATCH}, prompt "
+          f"{tokens.shape[1]}, gen {LM_GEN}, {cfg.n_layers} layers, cuts: "
+          f"{lm_cuts(arch)}: launches flash={n_fa} ({windowed} windowed, "
+          f"{noncausal} non-causal) ssd={n_ssd}; "
           f"prefill_ms={prefill_ms:.1f} "
           f"decode_tok_s={LM_BATCH / step_ms * 1e3:.1f} "
           f"peak_mem_gib={peak:.2f} (weights {weights_gib:.2f} GiB{memory}); "
           f"first calls in prefill, kernels vs plain: {first_txt}; "
           f"teacher-forced logits, max rel err kernels vs plain {rel:.3g}, "
           f"{check}; plain argmax == served token {agree}/{toks.numel()}; "
-          f"weights made in {init_s:.1f} s")
+          f"weights made in {stages['weights']:.1f} s")
     pre, dec = split["prefill"], split["decode"]
     step_dev = dec["total"] / (LM_GEN - 1)
+    scan_txt = "" if cfg.family != "ssm" else (
+        f"; the sLSTM scans' wall_ms={scan.seconds * 1e3:.1f} "
+        f"({scan.seconds * 1e3 / prefill_ms:.1%} of the served prefill)")
     print(f"[lm-time] {arch} {dtype}: prefill device_ms={pre['total']:.1f} "
           f"(flash {pre['flash']:.1f}, ssd {pre['ssd']:.1f}, other "
           f"{pre['total'] - pre['flash'] - pre['ssd']:.1f}) of wall_ms="
           f"{prefill_ms:.1f}; decode step device_ms={step_dev:.2f} of "
-          f"wall_ms={step_ms:.2f} (device idle {1 - step_dev / step_ms:.1%})")
+          f"wall_ms={step_ms:.2f} (device idle {1 - step_dev / step_ms:.1%})"
+          f"{scan_txt}; this check took {sum(stages.values()):.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in stages.items()) + ")")
+    if int8:
+        int8_kv_report(arch, cfg, int8)
+        n_fa += int8["launches"]
     del params, tokens, toks, kern, plain
     torch.cuda.empty_cache()
     return n_fa, n_ssd
+
+
+def fp32_copy(torch, params):
+    """An fp32 copy of bf16 ``params`` on the card, the bf16 weights moved
+    to the host first (int8 experts stay int8): (copy, a note of it)."""
+    params.to("cpu")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    p32 = params.to(DEV, torch.float32)
+    return p32, (f"; fp32 copy {param_gib(p32):.2f} GiB, the bf16 weights "
+                 "on the host meanwhile")
+
+
+def cache_gib(mdl, cfg, B, T):
+    """GiB of a (B, T) cache of ``cfg`` (its specs, nothing allocated)."""
+    import torch
+    from repro_torch.models.params import spec_map
+    total = []
+    spec_map(lambda s: total.append(math.prod(s.shape) * (
+        s.dtype or torch.bfloat16).itemsize), mdl.cache_specs(cfg, B, T))
+    return sum(total) / 2**30
+
+
+def forward_logits(torch, mdl, params, cfg, tokens, toks, inputs):
+    """The full forward over the prompt and the served tokens fed back:
+    the logits (B, V) at each position a teacher-forced run predicts from
+    (the prompt's last, then each fed token's), fp32."""
+    from repro_torch.models import layers
+    S = tokens.shape[1]
+    with torch.inference_mode():
+        h, _, _ = mdl.forward(params, cfg, dict(
+            inputs, tokens=torch.cat([tokens, toks[:, :-1]], dim=1)),
+            return_hidden=True)
+        out = layers.unembed(params["embed"], h[:, S - 1:]).float()
+    return [out[:, i] for i in range(out.shape[1])]
+
+
+class Outputs:
+    """Within the block, the outputs of every call of ``mod.name``, in
+    ``outs``."""
+
+    def __init__(self, mod, name):
+        self.mod, self.name, self.outs = mod, name, []
+
+    def __enter__(self):
+        self.saved = getattr(self.mod, self.name)
+
+        def call(*a, **kw):
+            out = self.saved(*a, **kw)
+            self.outs.append(out)
+            return out
+        setattr(self.mod, self.name, call)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.saved)
+
+
+@contextlib.contextmanager
+def int8_records(attention, moe, cfg, on):
+    """Within the block (where ``on``), the outputs of the attention decode
+    step that reads the KV (or latent) cache, and of the MoE routing:
+    (steps, picks) ``Outputs``, else None."""
+    if not on:
+        yield None
+        return
+    step = "mla_step" if cfg.attn_kind == "mla" else "gqa_step"
+    with Outputs(attention, step) as steps, Outputs(moe, "_route") as picks:
+        yield steps, picks
+
+
+def first_step_err(torch, rec, ref):
+    """The first attention decode step's output (the first layer at the
+    first step: the same input on both runs) of ``rec`` against ``ref``'s,
+    relative Frobenius."""
+    return rel_fro(torch, rec[0].outs[0][0], ref[0].outs[0][0])
+
+
+def changed_picks(rec, ref):
+    """(token routings whose top-k expert set differs, all) between two
+    runs' MoE routings."""
+    a, b = rec[1].outs, ref[1].outs
+    return (sum(int((x[1].sort(-1)[0] != y[1].sort(-1)[0]).any(-1).sum())
+                for x, y in zip(a, b)), sum(x[1].shape[0] for x in a))
+
+
+def int8_kv_check(torch, serve, FA, mdl, params, cfg, tokens, toks, inputs,
+                  kern, rec16):
+    """The int8 KV cache on the bf16 weights ``params`` (phase 10): served
+    by ``run_lm`` (its flash launches counted), then its decode fed the
+    bf16 run's served tokens ``toks`` (``kern``, its decode on the bf16
+    cache, ``rec16`` its ``int8_records``) against the bf16 full forward.
+    In bf16 a decode leaves the forward by the drift of two roundings of
+    the whole model, whatever its cache (PERF.md), so the int8 decode may
+    stray at most LM_BF16_RATIO times as far as ``kern``; where tokens
+    pick experts the cache is held at its layer instead (``int8_held``).
+    Returns the numbers so far (``int8_kv_fp32`` adds the fp32 check)."""
+    from repro_torch.models import attention, moe
+    cfg8 = cfg.replace(kv_cache_dtype="int8")
+    FA.launches = 0
+    toks8, prefill_ms, step_ms = served(torch, serve, cfg8, params, tokens,
+                                        inputs)
+    out = {"launches": FA.launches, "prefill_ms": prefill_ms,
+           "step_ms": step_ms}
+    if out["launches"] != sum(flash_calls(cfg).values()) or \
+            tuple(toks8.shape) != tuple(toks.shape):
+        raise AssertionError(f"lm int8 kv {cfg.name}: {out['launches']} "
+                             f"flash launches, tokens {tuple(toks8.shape)}")
+    with int8_records(attention, moe, cfg, True) as rec8:
+        dec8 = teacher_forced(torch, serve, mdl, params, cfg8, tokens, toks,
+                              inputs=inputs)
+    full = forward_logits(torch, mdl, params, cfg, tokens, toks, inputs)
+    out["bf16"] = (max_rel(dec8, full), max_rel(kern, full),
+                   first_step_err(torch, rec8, rec16),
+                   changed_picks(rec8, rec16))
+    T = tokens.shape[1] + LM_GEN
+    out["gib"] = (cache_gib(mdl, cfg8, LM_BATCH, T),
+                  cache_gib(mdl, cfg, LM_BATCH, T))
+    e8, e16, layer, _ = out["bf16"]
+    if not int8_held(cfg, layer, e8 <= LM_BF16_RATIO * e16):
+        raise AssertionError(f"lm int8 kv {cfg.name}: bf16 {out['bf16']}")
+    return out
+
+
+def int8_held(cfg, layer, logits_ok):
+    """The int8 KV cache's gate: the first attention step within
+    INT8_KV_REL of the unquantised cache's, and, where tokens pick no
+    experts, the logits check ``logits_ok``.  A MoE model's top-k routing
+    is discontinuous: a perturbation of any size moves some token's pick
+    at some layer and its logits jump (the changed picks are counted), so
+    its logits are not held."""
+    return layer <= INT8_KV_REL and (bool(cfg.n_experts) or logits_ok)
+
+
+def int8_kv_fp32(torch, serve, mdl, p32, cfg, tokens, toks, inputs, truth,
+                 out, rec32):
+    """The int8 KV cache's check on the fp32 weights ``p32``, where only the
+    cache is quantised: its decode within INT8_KV_REL of max |logit| of the
+    full forward (the reference's check), and its first attention step
+    within INT8_KV_REL of the unquantised cache's (``truth``'s run,
+    ``rec32`` its ``int8_records``); see ``int8_held``."""
+    from repro_torch.models import attention, moe
+    cfg8 = cfg.replace(kv_cache_dtype="int8")
+    with int8_records(attention, moe, cfg, True) as rec8:
+        dec32 = teacher_forced(torch, serve, mdl, p32, cfg8, tokens, toks,
+                               inputs=inputs)
+    full = forward_logits(torch, mdl, p32, cfg, tokens, toks, inputs)
+    out["fp32"] = (max_rel(dec32, full), max_rel(truth, full),
+                   max_rel(dec32, truth), first_step_err(torch, rec8, rec32),
+                   changed_picks(rec8, rec32))
+    if not int8_held(cfg, out["fp32"][3], out["fp32"][0] <= INT8_KV_REL):
+        raise AssertionError(f"lm int8 kv {cfg.name}: fp32 {out['fp32']}")
+
+
+def int8_kv_report(arch, cfg, out):
+    (g8, g16) = out["gib"]
+    e8, e16, l16, p16 = out["bf16"]
+    f8, f16, f8_16, l32, p32 = out["fp32"]
+    held = "the first attention step (the logits are not held: top-k " \
+        "routing)" if cfg.n_experts else \
+        "the first attention step and the fp32 decode vs the forward"
+    print(f"[lm-int8kv] {arch}: cuts: {lm_cuts(arch)}; cache {g8:.3f} GiB "
+          f"int8 against {g16:.3f} GiB bf16 ({g8 / g16:.3f}x); launches "
+          f"flash={out['launches']}; prefill_ms={out['prefill_ms']:.1f} "
+          f"decode_tok_s={LM_BATCH / out['step_ms'] * 1e3:.1f}; held: "
+          f"{held}, tolerance {INT8_KV_REL}; fp32 weights: first attention "
+          f"step int8 vs unquantised cache {l32:.3g}, teacher-forced decode "
+          f"max rel err int8 cache vs the forward {f8:.3g}, unquantised "
+          f"cache vs the forward {f16:.3g}, int8 vs unquantised {f8_16:.3g}, "
+          f"token routings that pick other experts {p32[0]} of {p32[1]}; "
+          f"bf16 weights: first attention step {l16:.3g}, vs the forward: "
+          f"int8 cache {e8:.3g}, bf16 cache {e16:.3g} (at most "
+          f"{LM_BF16_RATIO}x where not routed), routings changed {p16[0]} "
+          f"of {p16[1]}")
 
 
 def phase_lm_default(torch, serve, FA):
     """``run_lm(arch)`` with no other argument, as a user calls it: the
     smoke config, bf16, on the card."""
     from repro_torch.configs import base as cb
-    for arch in LM_ARCHS + LM_NEW_ARCHS:
+    for arch in cb.ARCH_IDS:
         cfg = cb.smoke(arch)
         FA.launches = 0
         toks = serve.run_lm(arch)
         n_fa = FA.launches
         if toks.dim() != 2 or int(toks.min()) < 0 or \
-                int(toks.max()) >= cfg.vocab_size or n_fa < 1:
+                int(toks.max()) >= cfg.vocab_size or \
+                n_fa != sum(flash_calls(cfg).values()):
             raise AssertionError(f"run_lm({arch!r}): tokens "
                                  f"{tuple(toks.shape)}, {n_fa} flash "
                                  "launches")
-        heads = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim,
-                 cfg.v_head_dim) if cfg.attn_kind == "mla" else \
-            (cfg.dh, cfg.dh)
-        print(f"[lm-default] run_lm({arch!r}): smoke config, head dims "
-              f"{heads} (the kernel's {FA.padded_head_dims(*heads)}), "
+        heads = None if cfg.family == "ssm" else \
+            (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim,
+             cfg.v_head_dim) if cfg.attn_kind == "mla" else (cfg.dh, cfg.dh)
+        kernel = "no attention" if heads is None else \
+            f"head dims {heads} (the kernel's {FA.padded_head_dims(*heads)})"
+        print(f"[lm-default] run_lm({arch!r}): smoke config, {kernel}, "
               f"tokens {tuple(toks.shape)} in range, flash launches {n_fa}")
 
 
@@ -1876,8 +2227,11 @@ def main() -> int:
     phase_reference(torch, serve)
     launches = phase_main(torch, gm, serve)
     ann_launches, _ = phase_ann(torch, gm, A, serve)
+    t_lm = time.perf_counter()
     lm_launches = phase_lm(torch, serve, FA, SSD)
     phase_lm_default(torch, serve, FA)
+    print(f"[time] phases 10-11 (LM) took {time.perf_counter() - t_lm:.1f} "
+          f"s; the script {time.perf_counter() - T_START:.1f} s")
 
     kernels = []
     for dtype in DTYPES:
@@ -1910,10 +2264,12 @@ def main() -> int:
         for key in FLASH_SERVE:
             if key == "mha":
                 continue
-            B, H, Kh, S, _, D, Dv, _, window = FLASH_SERVE[key]
+            B, H, Kh, Sq, Sk, D, Dv, causal, window = FLASH_SERVE[key]
             t = f_timings[(dtype, key)]
+            seq = f"S={Sq}" if Sq == Sk else f"Sq={Sq} Sk={Sk}"
             more[key] = {
-                "shape": f"B={B} H={H} Kh={Kh} S={S} D={D} Dv={Dv} causal"
+                "shape": f"B={B} H={H} Kh={Kh} {seq} D={D} Dv={Dv} "
+                         + ("causal" if causal else "non-causal")
                          + (f" window={window}" if window else ""),
                 "ms": t[0], "plain_ms": t[1], "library_ms": t[2],
                 "bound_ms": t[3], "bound_by": t[4]}

@@ -4,11 +4,8 @@ Every assigned architecture gets one module in this package defining
 ``CONFIG`` (exact published numbers) and ``smoke()`` (a reduced config of the
 same family for CPU tests). ``get(name)`` resolves either.
 
-The port's copy of the reference's ``configs/base.py``.  The modules of
-the dense, hybrid, MoE and gemma3 families (``tinyllama-1.1b``,
-``zamba2-2.7b``, ``deepseek-v2-236b``, ``deepseek-v3-671b``,
-``gemma3-12b``) are ported so far; the other ids of ``ARCH_IDS`` raise,
-naming the ROADMAP item that ports them (Queue 1 item 9).
+The port's copy of the reference's ``configs/base.py``, with a module for
+every id of ``ARCH_IDS``.
 """
 from __future__ import annotations
 
@@ -133,14 +130,11 @@ ARCH_IDS = [
 ]
 
 
-PORTED = ("zamba2-2.7b", "tinyllama-1.1b", "deepseek-v2-236b",
-          "deepseek-v3-671b", "gemma3-12b")
+# the archs the port serves: every one
+PORTED = ARCH_IDS
 
 
 def _module(name: str):
-    if name in ARCH_IDS and name not in PORTED:
-        raise NotImplementedError(
-            f"{name}: its family is not ported yet (ROADMAP Queue 1 item 9)")
     return importlib.import_module(f"repro_torch.configs.{name.replace('-', '_').replace('.', '_')}")
 
 

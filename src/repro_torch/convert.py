@@ -11,11 +11,13 @@ the port's modules and a ``SecureGallery`` that compute the same:
   over: the two at-rest ciphers differ), and the enrolled raw templates,
   labels and tenants, which are enrolled again in the same order;
 * an LM's parameter tree (``lm_params``): the reference stacks every
-  block's parameters on a leading axis (two for the hybrid's Mamba-2
-  layers and gemma3's attention and MLP layers: superblock, then layer),
-  the port holds one module per block and a list per superblock; the
-  MoE family's ``prefix`` layers and the ``mtp`` head are carried as they
-  are, int8 expert matrices and their f32 scales in their own dtypes.
+  block's parameters, and the audio encoder's, on a leading axis (two
+  for the hybrid's Mamba-2 layers, gemma3's attention and MLP layers and
+  the xLSTM's mLSTM layers: superblock, then layer), the port holds one
+  module per block and a list per superblock; the MoE family's ``prefix``
+  layers, the ``mtp`` head, the vlm ``projector`` and the encoder's
+  ``enc_ln`` are carried as they are, int8 expert matrices and their f32
+  scales in their own dtypes.
 """
 from __future__ import annotations
 
@@ -77,22 +79,33 @@ def _map(fn, tree):
     return fn(tree)
 
 
+def _unstack(stacked, n: int, per_layer=None):
+    """Entries 0 .. n - 1 of a tree stacked on its leading axis, each
+    subtree named in ``per_layer`` ({name: m}) unstacked once more into a
+    list of m."""
+    out = []
+    for i in range(n):
+        b = _map(lambda a: np.asarray(a)[i], stacked)
+        for name, m in (per_layer or {}).items():
+            b[name] = [_map(lambda a: a[j], b[name]) for j in range(m)]
+        out.append(b)
+    return out
+
+
 def lm_params(cfg, params_np) -> "mdl.LM":
     """The port's model holding the reference's parameters (a tree of
-    numpy arrays, as ``jax.tree.map(np.asarray, params)`` gives): ``embed``,
-    ``final_ln``, ``prefix``, ``shared`` and ``mtp`` as they are, ``blocks``
-    unstacked into one entry per block (and the hybrid's ``mamba`` and
-    gemma3's ``attn`` and ``mlp`` into one per layer)."""
-    stacked = params_np["blocks"]
-    per_layer = {"hybrid": ("mamba",), "gemma3": ("attn", "mlp")}.get(
-        cfg.family, ())
-    blocks = []
-    for i in range(cfg.n_superblocks):
-        b = _map(lambda a: np.asarray(a)[i], stacked)
-        for name in per_layer:
-            b[name] = [_map(lambda a: a[j], b[name])
-                       for j in range(cfg.superblock)]
-        blocks.append(b)
-    tree = {k: v for k, v in params_np.items() if k != "blocks"}
-    tree["blocks"] = blocks
+    numpy arrays, as ``jax.tree.map(np.asarray, params)`` gives):
+    ``embed``, ``final_ln``, ``prefix``, ``shared``, ``projector``,
+    ``enc_ln`` and ``mtp`` as they are, ``blocks`` and ``encoder`` unstacked
+    into one entry per block (and the hybrid's ``mamba``, gemma3's
+    ``attn`` and ``mlp`` and the xLSTM's ``m`` into one per layer)."""
+    sb = cfg.superblock
+    per_layer = {"hybrid": {"mamba": sb}, "gemma3": {"attn": sb, "mlp": sb},
+                 "ssm": {"m": sb - 1}}.get(cfg.family)
+    tree = {k: v for k, v in params_np.items()
+            if k not in ("blocks", "encoder")}
+    tree["blocks"] = _unstack(params_np["blocks"], cfg.n_superblocks,
+                              per_layer)
+    if "encoder" in params_np:
+        tree["encoder"] = _unstack(params_np["encoder"], cfg.encoder_layers)
     return mdl.LM(cfg, _map(_tensor, tree))

@@ -10,8 +10,8 @@ CR-FIQA/FaceNet bitstreams), and serves it two ways:
   against its *own* watchlist (tenant-scoped gallery views).
 * ``--mode biometric``: the single-operator scenario with a live hot-swap.
 
-* ``--mode lm``: LM serving (prefill, then greedy decode) for the dense,
-  hybrid, MoE and gemma3 families (``run_lm``).
+* ``--mode lm``: LM serving (prefill, then greedy decode) for every arch
+  of ``configs.base.ARCH_IDS`` (``run_lm``).
 
 The port of the reference's ``launch/serve.py``.  The stages are
 ``nn.Module``s computing in NCHW;
@@ -459,27 +459,31 @@ def _tree_map2(fn, a, b):
     return fn(a, b)
 
 
-def prefill_cache(params, cfg, tokens, T: int):
-    """Run the prompts ``tokens`` (B, S) and put their cache into the front
-    of a T-long one in the weights' dtype: (last-token logits (B, V),
-    cache), as ``run_lm`` serves."""
-    last, cache = mdl.prefill(params, cfg, {"tokens": tokens})
+def prefill_cache(params, cfg, tokens, T: int, inputs=None):
+    """Run the prompts ``tokens`` (B, S), with the modality ``inputs`` (a
+    dict of ``patches`` or ``frames``) where the family takes them, and put
+    their cache into the front of a T-long one in the weights' dtype:
+    (last-token logits (B, V), cache), as ``run_lm`` serves."""
+    last, cache = mdl.prefill(params, cfg, {"tokens": tokens,
+                                            **(inputs or {})})
     full = sp.init_cache(cfg, tokens.shape[0], T, dtype=params.dtype,
                          device=tokens.device)
     return last, _tree_map2(_put, full, cache)
 
 
 def run_lm(arch="tinyllama-1.1b", batch=2, prompt_len=32, gen=16, *,
-           cfg=None, params=None, tokens=None, device=None):
+           cfg=None, params=None, tokens=None, inputs=None, device=None):
     """Prefill a batch of prompts, put the cache into a (prompt + gen)-long
     one, and decode ``gen`` tokens greedily; returns them (batch, gen).
 
     By default it serves ``arch``'s smoke config with bf16 weights drawn
-    from a generator seeded with 0 and random prompts from the same
-    generator, as the reference does.  ``cfg`` serves another config (a
-    full one), ``params`` given weights (an ``mdl.LM``), ``tokens`` given
-    prompts (batch, prompt_len); the caches take the weights' dtype (bf16,
-    the reference's ``MODEL_DTYPE``, by default)."""
+    from a generator seeded with 0 and random prompts (and, for the vlm
+    and audio families, patches or frames) from the same generator, as
+    the reference does.  ``cfg`` serves another config (a full one),
+    ``params`` given weights (an ``mdl.LM``), ``tokens`` given prompts
+    (batch, prompt_len) and ``inputs`` given modality inputs (a dict, as
+    ``sp.make_batch`` draws them); the caches take the weights' dtype
+    (bf16, the reference's ``MODEL_DTYPE``, by default)."""
     dev = resolve_device(device)
     _strict_fp32()
     cfg = cfg if cfg is not None else cb.smoke(arch)
@@ -487,16 +491,19 @@ def run_lm(arch="tinyllama-1.1b", batch=2, prompt_len=32, gen=16, *,
     if params is None:
         params = mdl.init(cfg, gen_t, sp.MODEL_DTYPE, dev)
     params = params.to(dev)
-    if tokens is None:
-        tokens = sp.make_batch(cfg, prompt_len, batch, gen_t,
-                               device=dev)["tokens"]
+    if tokens is not None:
+        batch, prompt_len = tokens.shape
+    drawn = sp.make_batch(cfg, prompt_len, batch, gen_t, device=dev)
+    drawn_tokens = drawn.pop("tokens")
+    tokens = drawn_tokens if tokens is None else tokens
     tokens = torch.as_tensor(tokens, dtype=torch.int32, device=dev)
-    batch, prompt_len = tokens.shape
+    inputs = {k: torch.as_tensor(v, device=dev)
+              for k, v in (drawn if inputs is None else inputs).items()}
     T = prompt_len + gen
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     with torch.inference_mode():
         t0 = time.perf_counter()
-        last, cache = prefill_cache(params, cfg, tokens, T)
+        last, cache = prefill_cache(params, cfg, tokens, T, inputs)
         tok = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
         sync()
         t1 = time.perf_counter()
@@ -520,7 +527,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=["fleet", "biometric", "lm"],
                     default="fleet")
-    ap.add_argument("--arch", default="tinyllama-1.1b")
+    ap.add_argument("--arch", default="tinyllama-1.1b", choices=cb.ARCH_IDS)
     ap.add_argument("--frames", type=int, default=30)
     ap.add_argument("--duration", type=float, default=3.0,
                     help="fleet mode: seconds of offered traffic")

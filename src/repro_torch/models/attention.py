@@ -1,31 +1,37 @@
-"""Attention: GQA (full and sliding-window) and MLA, over a full sequence
-(prefill) and against a cache (decode).
+"""Attention: GQA (full, sliding-window and bidirectional), MLA and cross
+attention, over a full sequence (prefill) and against a cache (decode).
 
-The port of the reference's ``models/attention.py``.  ``gqa_fwd`` and
-``mla_fwd`` send causal full-sequence attention through
-``ops.flash_attention`` at every length, a sliding window included: the
-reference's three branches there (``plain_attention`` with a causal and
-window mask, ``flash_attention_jnp`` and ``banded_attention``) compute the
-same function as the flash kernel when Sq = Sk (the kernel's plain
-version, ``kernels.flash_attention.flash_attention_plain``, is
-``plain_attention`` with the kernel's masks).  MLA prefill expands the
-latent into per-head keys [k_nope | k_rope] (D = qk_nope + qk_rope) and
-values (Dv = v_head_dim) and runs the kernel at (D, Dv); the kernel's
-scale D^-1/2 is the reference's (qk_nope + qk_rope)^-1/2.
+The port of the reference's ``models/attention.py``.  ``gqa_fwd``,
+``mla_fwd`` and ``cross_fwd`` send full-sequence attention through
+``ops.flash_attention`` at every length, a sliding window and the
+non-causal encoder and cross attention included: the reference's branches
+there (``plain_attention`` with a causal, window or all-true mask,
+``flash_attention_jnp`` and ``banded_attention``) compute the same
+function as the flash kernel (its plain version,
+``kernels.flash_attention.flash_attention_plain``, is ``plain_attention``
+with the kernel's masks; a causal call has Sq = Sk, so the kernel's
+left-aligned mask is the reference's).  The reference's ``cross_fwd``
+takes its chunked path only where Sq * Sk >= 2^21; the port calls the
+kernel at any size.  MLA prefill expands the latent into per-head keys
+[k_nope | k_rope] (D = qk_nope + qk_rope) and values (Dv = v_head_dim)
+and runs the kernel at (D, Dv); the kernel's scale D^-1/2 is the
+reference's (qk_nope + qk_rope)^-1/2.
 
-``gqa_step`` and ``mla_step`` (one token against the cache) stay plain
-torch, as the reference has no kernel for them; each writes the new
-entry into the cache in place and returns the same cache dict, so a
-decode step does not copy the cache.  A sliding-window layer's cache is
-a ring of ``min(window, T)`` slots: prefill leaves the last ``window``
-positions with position p at slot p % window, and a step writes slot
-``pos % T`` and masks positions at or before ``pos - window``.  (The
-reference rolls the prefill ring by (-S) % window, which gives that
-layout only where 2S is a multiple of the window.)
+``gqa_step``, ``mla_step`` and ``cross_step`` (one token against the
+cache) stay plain torch, as the reference has no kernel for them;
+``gqa_step`` and ``mla_step`` write the new entry into the cache in place
+and return the same cache dict, so a decode step does not copy the cache.
+A sliding-window layer's cache is a ring of ``min(window, T)`` slots:
+prefill leaves the last ``window`` positions with position p at slot
+p % window, and a step writes slot ``pos % T`` and masks positions at or
+before ``pos - window``.  (The reference rolls the prefill ring by
+(-S) % window, which gives that layout only where 2S is a multiple of the
+window.)
 
-Not ported yet: cross-attention and the bidirectional encoder (audio)
-and the int8 KV cache; each raises or is absent, naming its ROADMAP item
-(Queue 1 item 9).
+``kv_cache_dtype="int8"`` keeps the KV (and MLA latent) cache as
+symmetric int8 rows with one fp32 scale a (token, head) (``_quant_rows``);
+as in the reference, the scales fold into the scores and the
+probabilities, so the dequantized cache never materializes.
 """
 from __future__ import annotations
 
@@ -36,17 +42,6 @@ from repro_torch.models.layers import apply_rope, rms_norm
 from repro_torch.models.params import Spec
 
 NEG = -2.0e38
-
-
-def _todo(what: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 "
-                              "item 9)")
-
-
-def _no_int8_kv(int8: bool):
-    if int8:
-        raise NotImplementedError("the int8 KV cache is not ported yet "
-                                  "(ROADMAP Queue 1 item 9.6)")
 
 
 # ---------------------------------------------------------------------------
@@ -83,11 +78,19 @@ def mla_specs(cfg):
 
 def cache_spec_gqa(cfg, B, T, window=0):
     """k / v (B, W, Kh, dh) and pos (B, W), W = min(window, T) for a
-    sliding-window layer (a ring), else T."""
-    _no_int8_kv(cfg.kv_cache_dtype == "int8")
+    sliding-window layer (a ring), else T; in int8 with their scales
+    k_s / v_s (B, W, Kh)."""
     dh, Kh = cfg.dh, cfg.n_kv_heads
     W = min(window, T) if window else T
     ax = ("cache_batch", "cache_seq", "kv_heads", "head_dim")
+    if cfg.kv_cache_dtype == "int8":
+        return {
+            "k": Spec((B, W, Kh, dh), ax, "zeros", torch.int8),
+            "k_s": Spec((B, W, Kh), ax[:3], "zeros", torch.float32),
+            "v": Spec((B, W, Kh, dh), ax, "zeros", torch.int8),
+            "v_s": Spec((B, W, Kh), ax[:3], "zeros", torch.float32),
+            "pos": Spec((B, W), ax[:2], "zeros", torch.int32),
+        }
     return {
         "k": Spec((B, W, Kh, dh), ax, "zeros"),
         "v": Spec((B, W, Kh, dh), ax, "zeros"),
@@ -97,8 +100,17 @@ def cache_spec_gqa(cfg, B, T, window=0):
 
 def cache_spec_mla(cfg, B, T):
     """The latent cache: ckv (B, T, kv_lora_rank), krope (B, T, qk_rope)
-    and pos (B, T)."""
-    _no_int8_kv(cfg.kv_cache_dtype == "int8")
+    and pos (B, T); in int8, ckv with its scale ckv_s (B, T)."""
+    bt = ("cache_batch", "cache_seq")
+    if cfg.kv_cache_dtype == "int8":
+        return {
+            "ckv": Spec((B, T, cfg.kv_lora_rank), bt + ("kv_lora",),
+                        "zeros", torch.int8),
+            "ckv_s": Spec((B, T), bt, "zeros", torch.float32),
+            "krope": Spec((B, T, cfg.qk_rope_head_dim), bt + ("head_dim",),
+                          "zeros"),
+            "pos": Spec((B, T), bt, "zeros", torch.int32),
+        }
     return {
         "ckv": Spec((B, T, cfg.kv_lora_rank),
                     ("cache_batch", "cache_seq", "kv_lora"), "zeros"),
@@ -107,6 +119,14 @@ def cache_spec_mla(cfg, B, T):
         "pos": Spec((B, T), ("cache_batch", "cache_seq"), "zeros",
                     torch.int32),
     }
+
+
+def _quant_rows(x):
+    """Symmetric int8 over the last axis. x: (..., D) -> (int8, f32 scale)."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=1e-12)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
 
 
 # ---------------------------------------------------------------------------
@@ -133,11 +153,12 @@ def _apply_probs(p, v):
     return o.reshape(B, Sq, Kh * G, v.shape[-1])
 
 
-def _flash(q, k, v, window=0):
-    """Causal (windowed) attention of (B,S,*,D) tensors through the flash
-    kernel, as its (B,*,S,D) views; returns (B,S,H,Dv)."""
+def _flash(q, k, v, window=0, causal=True):
+    """Attention of (B,S,*,D) tensors through the flash kernel, as its
+    (B,*,S,D) views: causal (windowed) with Sq = Sk, or non-causal with any
+    Sq, Sk; returns (B,Sq,H,Dv)."""
     o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2), causal=True, window=window)
+                            v.transpose(1, 2), causal=causal, window=window)
     return o.transpose(1, 2)
 
 
@@ -145,9 +166,12 @@ def _flash(q, k, v, window=0):
 # GQA layer
 # ---------------------------------------------------------------------------
 def _proj(h, w):
-    """h (B,S,d) @ w (d, heads, dh) -> (B,S,heads,dh)."""
+    """h (B,S,d) @ w (d, heads, dh) -> (B,S,heads,dh).  h is cast to w's
+    dtype: a bf16 input to fp32 weights (whisper's frames in an fp32 run),
+    which the reference's einsum promotes so."""
     d, n, dh = w.shape
-    return (h @ w.reshape(d, n * dh)).reshape(*h.shape[:2], n, dh)
+    y = h.to(w.dtype) @ w.reshape(d, n * dh)
+    return y.reshape(*h.shape[:2], n, dh)
 
 
 def _qkv(p, x, cfg, theta, pos):
@@ -167,12 +191,11 @@ def _out(o, wo):
     return o.reshape(*o.shape[:2], H * dh) @ wo.reshape(H * dh, d)
 
 
-def gqa_fwd(p, x, cfg, *, theta, window=0, want_cache=False):
-    _no_int8_kv(want_cache and cfg.kv_cache_dtype == "int8")
+def gqa_fwd(p, x, cfg, *, theta, window=0, causal=True, want_cache=False):
     B, S, _ = x.shape
     pos = torch.arange(S, device=x.device)
     q, k, v = _qkv(p, x, cfg, theta, pos)
-    y = _out(_flash(q, k, v, window), p["wo"])
+    y = _out(_flash(q, k, v, window, causal), p["wo"])
     cache = None
     if want_cache:
         cpos = pos.to(torch.int32).expand(B, S)
@@ -182,14 +205,19 @@ def gqa_fwd(p, x, cfg, *, theta, window=0, want_cache=False):
             k, v, cpos = (torch.roll(t[:, S - window:], S % window, dims=1)
                           for t in (k, v, cpos))
         cache = {"k": k, "v": v, "pos": cpos.contiguous()}
+        if cfg.kv_cache_dtype == "int8":
+            cache["k"], cache["k_s"] = _quant_rows(k)
+            cache["v"], cache["v_s"] = _quant_rows(v)
     return y, cache
 
 
 def gqa_step(p, x, cfg, cache, pos, *, theta, window=0):
     """x: (B,1,d); cache k/v: (B,T,Kh,D) (T = min(window, T) for a local
     layer), written in place at slot ``pos % T`` (a window's ring) or
-    ``min(pos, T - 1)``; returns (y, the same cache dict)."""
-    _no_int8_kv("k_s" in cache)
+    ``min(pos, T - 1)``; returns (y, the same cache dict).  An int8 cache
+    (``k_s`` in it) takes the new rows quantized; its scores are the dot
+    with the int8 keys, then times their scales, and the v scales fold
+    into the probabilities, as the reference's."""
     pos = int(pos)
     posv = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
                       device=x.device)
@@ -197,15 +225,31 @@ def gqa_step(p, x, cfg, cache, pos, *, theta, window=0):
     ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
     T = ck.shape[1]
     slot = pos % T if window else min(pos, T - 1)
-    ck[:, slot] = k[:, 0].to(ck.dtype)
-    cv[:, slot] = v[:, 0].to(cv.dtype)
+    int8_kv = "k_s" in cache
+    if int8_kv:
+        ck[:, slot], cache["k_s"][:, slot] = _quant_rows(k[:, 0])
+        cv[:, slot], cache["v_s"][:, slot] = _quant_rows(v[:, 0])
+    else:
+        ck[:, slot] = k[:, 0].to(ck.dtype)
+        cv[:, slot] = v[:, 0].to(cv.dtype)
     cpos[:, slot] = pos
     valid = cpos <= pos
     if window:
         valid &= cpos > pos - window
-    s = _grouped_scores(q, ck, out_dtype=ck.dtype) * (cfg.dh ** -0.5)
+    if int8_kv:
+        s = _grouped_scores(q, ck.to(q.dtype), out_dtype=q.dtype)
+        s = s * cache["k_s"].transpose(1, 2)[:, :, None, None, :]
+    else:
+        s = _grouped_scores(q, ck, out_dtype=ck.dtype)
+    s = s * (cfg.dh ** -0.5)
     s = torch.where(valid[:, None, None, None, :], s, torch.full_like(s, NEG))
-    o = _apply_probs(torch.softmax(s, dim=-1), cv)
+    pr = torch.softmax(s, dim=-1)
+    if int8_kv:
+        # sum_t (p_t v_s_t) v_q_t
+        pr = pr * cache["v_s"].transpose(1, 2)[:, :, None, None, :]
+        o = _apply_probs(pr, cv.to(q.dtype))
+    else:
+        o = _apply_probs(pr, cv)
     return _out(o, p["wo"]), cache
 
 
@@ -228,7 +272,6 @@ def _mla_qkv_latent(p, x, cfg, pos):
 
 
 def mla_fwd(p, x, cfg, *, want_cache=False):
-    _no_int8_kv(want_cache and cfg.kv_cache_dtype == "int8")
     B, S, _ = x.shape
     H, dr = cfg.n_heads, cfg.qk_rope_head_dim
     pos = torch.arange(S, device=x.device)
@@ -243,6 +286,8 @@ def mla_fwd(p, x, cfg, *, want_cache=False):
     if want_cache:
         cache = {"ckv": ckv, "krope": k_rope,
                  "pos": pos.to(torch.int32).expand(B, S).contiguous()}
+        if cfg.kv_cache_dtype == "int8":
+            cache["ckv"], cache["ckv_s"] = _quant_rows(ckv)
     return y, cache
 
 
@@ -251,15 +296,23 @@ def mla_step(p, x, cfg, cache, pos, *, absorb=True):
     ``min(pos, T - 1)``; returns (y, the same cache dict).  ``absorb``
     folds wuk into the query and wuv after the probabilities (scores
     against the latent cache itself), as the reference's default; else
-    the cache is expanded into per-head keys and values."""
-    _no_int8_kv("ckv_s" in cache)
+    the cache is expanded into per-head keys and values.  An int8 latent
+    cache (``ckv_s`` in it) is cast to x's dtype; absorbed, its row scales
+    fold into the scores and the probabilities, expanded, they multiply
+    the latent first, as the reference's."""
     pos = int(pos)
     B = x.shape[0]
     posv = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q_nope, q_rope, ckv, k_rope = _mla_qkv_latent(p, x, cfg, posv)
     cckv, ckr, cpos = cache["ckv"], cache["krope"], cache["pos"]
     slot = min(pos, cckv.shape[1] - 1)
-    cckv[:, slot] = ckv[:, 0].to(cckv.dtype)
+    int8_kv = "ckv_s" in cache
+    if int8_kv:
+        cckv[:, slot], cache["ckv_s"][:, slot] = _quant_rows(ckv[:, 0])
+        lat, ccs = cckv.to(x.dtype), cache["ckv_s"]
+    else:
+        cckv[:, slot] = ckv[:, 0].to(cckv.dtype)
+        lat = cckv
     ckr[:, slot] = k_rope[:, 0].to(ckr.dtype)
     cpos[:, slot] = pos
     valid = (cpos <= pos)[:, None, None, :]                 # (B,1,1,T)
@@ -269,15 +322,21 @@ def mla_step(p, x, cfg, cache, pos, *, absorb=True):
         # the cache's dtype (bf16 rounded before the upcast, as the
         # reference's preferred_element_type)
         q_lat = torch.einsum("bshk,rhk->bshr", q_nope, p["wuk"])
-        s = torch.einsum("bshr,btr->bhst", q_lat, cckv).float()
+        s = torch.einsum("bshr,btr->bhst", q_lat, lat).float()
+        if int8_kv:
+            s = s * ccs[:, None, None, :]
         s = s + torch.einsum("bshk,btk->bhst", q_rope, ckr).float()
         s = torch.where(valid, s * scale, torch.full_like(s, NEG))
         pr = torch.softmax(s, dim=-1)
-        ctx = torch.einsum("bhst,btr->bshr", pr.to(x.dtype), cckv)
+        if int8_kv:
+            pr = pr * ccs[:, None, None, :]
+        ctx = torch.einsum("bhst,btr->bshr", pr.to(x.dtype), lat)
         o = torch.einsum("bshr,rhk->bshk", ctx, p["wuv"])
     else:
-        k_nope = torch.einsum("btr,rhk->bthk", cckv, p["wuk"])
-        v = torch.einsum("btr,rhk->bthk", cckv, p["wuv"])
+        if int8_kv:
+            lat = lat * ccs[..., None].to(x.dtype)
+        k_nope = torch.einsum("btr,rhk->bthk", lat, p["wuk"])
+        v = torch.einsum("btr,rhk->bthk", lat, p["wuv"])
         k = torch.cat([k_nope, ckr[:, :, None, :].expand(
             *k_nope.shape[:3], ckr.shape[-1])], dim=-1)
         q = torch.cat([q_nope, q_rope], dim=-1)
@@ -289,15 +348,36 @@ def mla_step(p, x, cfg, cache, pos, *, absorb=True):
 
 
 # ---------------------------------------------------------------------------
-# Cross attention (whisper decoder): not ported yet
+# Cross attention (whisper decoder)
 # ---------------------------------------------------------------------------
 def cross_specs(cfg):
-    _todo("cross-attention (the audio family)")
-
-
-def cross_fwd(p, x, memory_kv, cfg):
-    _todo("cross-attention (the audio family)")
+    return gqa_specs(cfg)
 
 
 def cross_memory(p, memory, cfg):
-    _todo("cross-attention (the audio family)")
+    """The encoder's output projected to the cross keys and values: dict
+    k / v (B, Se, Kh, D), computed once a prefill and kept as the cross
+    cache."""
+    return {"k": _proj(memory, p["wk"]), "v": _proj(memory, p["wv"])}
+
+
+def _cross_q(p, x, cfg):
+    return _proj(rms_norm(x, p["ln"], cfg.norm_eps), p["wq"])
+
+
+def cross_fwd(p, x, memory_kv, cfg):
+    """x: (B,S,d); memory_kv: dict k/v (B,Se,Kh,D).  Every query sees every
+    key: the flash kernel, non-causal, at Sq = S, Sk = Se."""
+    o = _flash(_cross_q(p, x, cfg), memory_kv["k"], memory_kv["v"],
+               causal=False)
+    return _out(o, p["wo"])
+
+
+def cross_step(p, x, memory_kv, cfg):
+    """``cross_fwd`` for one decode token, in plain torch against the cross
+    cache, as the reference's ``cross_fwd`` computes it there
+    (``plain_attention``: fp32 scores, probabilities in v's dtype)."""
+    q = _cross_q(p, x, cfg)
+    s = _grouped_scores(q, memory_kv["k"]) * (cfg.dh ** -0.5)
+    o = _apply_probs(torch.softmax(s, dim=-1), memory_kv["v"])
+    return _out(o, p["wo"])

@@ -1,9 +1,11 @@
-"""Shared primitives: norms, RoPE, gated MLP, embeddings.
+"""Shared primitives: norms, RoPE, sinusoid positions, gated MLP,
+embeddings.
 
-The port of the reference's ``models/layers.py`` as far as the dense and
-hybrid families use it.  Casts follow the reference: norms compute in fp32
-and return the input's dtype, RoPE rotates in fp32, matmuls keep their
-operands' dtype (a bf16 product accumulates in fp32 and rounds once).
+The port of the reference's ``models/layers.py`` as far as serving uses
+it (the losses port with training).  Casts follow the reference: norms
+compute in fp32 and return the input's dtype, RoPE rotates in fp32,
+matmuls keep their operands' dtype (a bf16 product accumulates in fp32
+and rounds once).
 """
 from __future__ import annotations
 
@@ -20,6 +22,25 @@ def rms_norm(x, w, eps=1e-6):
     x = x.float()
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
     return (x * (1.0 + w.float())).to(dt)
+
+
+def layer_norm(x, w, b, eps=1e-5):
+    """No model of the reference calls it; kept with the other norms."""
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * w.float() + b.float()).to(dt)
+
+
+def group_norm_heads(x, w, eps=1e-6):
+    """Per-head group norm over the last dim. x: (..., H, D)."""
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    return ((x - mu) * torch.rsqrt(var + eps) * w.float()).to(dt)
 
 
 def _gelu(x):
@@ -51,6 +72,19 @@ def apply_rope(x, pos, theta: float):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoid_pos_emb(S: int, d: int, offset=0, device=None):
+    """(S, d) fp32: [sin | cos] of positions offset .. offset + S - 1."""
+    pos = torch.arange(offset, offset + S, dtype=torch.float32,
+                       device=device)[:, None]
+    # the fp32 exponents' powers rounded once from fp64, as the reference's
+    # pow gives them: torch's fp32 pow is an ulp off for some, which moves
+    # the angle at position 1500 by ~1e-4
+    inv = (1e4 ** (-torch.arange(0, d, 2, dtype=torch.float32,
+                                 device=device) / d).double()).float()
+    ang = pos * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,10 @@
-"""The LM: the dense, hybrid, MoE and gemma3 families as ``nn.Module``s.
+"""The LM: every family of the reference as ``nn.Module``s.
 
-The port of the reference's ``models/model.py`` for four families:
+The port of the reference's ``models/model.py``:
 
-  dense   n_layers x {attn (GQA), mlp}                   tinyllama
+  dense   n_layers x {attn (GQA), mlp}          tinyllama, codeqwen, starcoder2
+  vlm     the dense blocks, and a ``projector`` whose projected patches
+          replace the first ``n_patches`` token embeddings   internvl2
   hybrid  n_layers / superblock x {superblock x mamba}, each followed by
           one weight-tied shared {attn, mlp}              zamba2
   moe     first_dense_layers x {attn (MLA), mlp} (``prefix``), then
@@ -11,28 +13,37 @@ The port of the reference's ``models/model.py`` for four families:
           layer of each superblock global (``rope_theta_global``, full
           attention), the others local (``rope_theta``, a sliding window)
                                                           gemma3
+  ssm     n_layers / superblock x {m: (superblock - 1) x mLSTM, s: sLSTM}
+                                                          xlstm
+  audio   an ``encoder`` of encoder_layers x {attn (non-causal), mlp} over
+          the frames, then ``enc_ln``; decoder blocks {self (causal GQA),
+          cross, mlp}; sinusoid positions, no RoPE        whisper
 
 The reference stacks each layer's parameters on a leading axis and scans
 over it; here every block is its own module in an ``nn.ModuleList`` and the
 layers run as a Python loop.  Parameter names are the reference's
 (``embed.tok``, ``blocks[i].attn.wq``, ``blocks[i].mamba[j].w_in``,
-``prefix.l0.attn.wdq``, ``shared.mlp.w_up``, ...), so ``convert.lm_params``
-is a walk over the reference's tree that unstacks ``blocks``.  Caches
-follow the same layout: a list with one dict per block (for the MoE
-family ``{"scan": [...], "prefix": {"l0": ...}}``, as the reference's).
-DeepSeek-V3's ``mtp`` head is in the parameter tree, as the reference's,
-and unused in serving.  The reference runs the MoE prefix layers a second
-time to build their caches; here they give their caches in the one pass
-(the same result, one flash launch a layer).
+``blocks[i].m[j].w_up``, ``encoder[i].attn.wq``, ``prefix.l0.attn.wdq``,
+``shared.mlp.w_up``, ``projector.w1``, ...), so ``convert.lm_params`` is a
+walk over the reference's tree that unstacks ``blocks`` and ``encoder``.
+Caches follow the same layout: a list with one dict per block (for the MoE
+family ``{"scan": [...], "prefix": {"l0": ...}}``, for the audio family
+``{"dec": [...], "cross": [...]}``, as the reference's).  DeepSeek-V3's
+``mtp`` head is in the parameter tree, as the reference's, and unused in
+serving.  The reference runs the MoE prefix layers a second time to build
+their caches, and projects the encoder's output to the cross keys and
+values a second time for the cross cache; here each is done once (the same
+result, one flash launch a layer).
 
 Entry points (of ``(params, cfg, ...)``, as the reference's):
   forward      logits over a full sequence (prefill path, optional caches),
-               and the MoE layers' summed aux loss
+               and the MoE layers' summed aux loss; ``batch`` holds
+               ``tokens`` and, for the vlm and audio families, ``patches``
+               (B, n_patches, vit_dim) or ``frames`` (B, encoder_len, d)
   prefill      run a prompt, return (last-token logits, cache)
   decode_step  one token through the cache -> (logits, cache); the cache is
                updated in place
   serve_step   greedy decode of one token
-Any other family raises, naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -43,16 +54,15 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
+from repro_torch.models import xlstm as X
 from repro_torch.models.params import Params, Spec, init_params
 
-FAMILIES = ("dense", "hybrid", "moe", "gemma3")
+FAMILIES = ("dense", "vlm", "hybrid", "moe", "gemma3", "ssm", "audio")
 
 
 def _check_family(cfg):
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet "
-            "(ROADMAP Queue 1 item 9)")
+        raise ValueError(f"{cfg.name}: no family {cfg.family!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -79,13 +89,19 @@ def _mlp_fwd(p, x, cfg):
 
 def _block_specs(cfg):
     fam = cfg.family
-    if fam == "dense":
+    if fam in ("dense", "vlm"):
         return {"attn": A.gqa_specs(cfg), "mlp": _mlp_specs(cfg)}
     if fam == "gemma3":
         return {"attn": [A.gqa_specs(cfg) for _ in range(cfg.superblock)],
                 "mlp": [_mlp_specs(cfg) for _ in range(cfg.superblock)]}
     if fam == "moe":
         return {"attn": A.mla_specs(cfg), "moe": M.moe_specs(cfg)}
+    if fam == "ssm":
+        return {"m": [X.mlstm_specs(cfg) for _ in range(cfg.superblock - 1)],
+                "s": X.slstm_specs(cfg)}
+    if fam == "audio":  # a decoder block
+        return {"self": A.gqa_specs(cfg), "cross": A.cross_specs(cfg),
+                "mlp": _mlp_specs(cfg)}
     return {"mamba": [S.mamba2_specs(cfg) for _ in range(cfg.superblock)]}
 
 
@@ -103,6 +119,15 @@ def param_specs(cfg):
             for i in range(cfg.first_dense_layers)}
     if cfg.family == "hybrid":
         p["shared"] = {"attn": A.gqa_specs(cfg), "mlp": _mlp_specs(cfg)}
+    if cfg.family == "vlm":
+        dv = cfg.vit_dim
+        p["projector"] = {"ln": Spec((dv,), ("embed",), "zeros"),
+                          "w1": Spec((dv, d), ("embed", "embed2")),
+                          "w2": Spec((d, d), ("embed", "embed2"))}
+    if cfg.family == "audio":
+        p["encoder"] = [{"attn": A.gqa_specs(cfg), "mlp": _mlp_specs(cfg)}
+                        for _ in range(cfg.encoder_layers)]
+        p["enc_ln"] = Spec((d,), ("embed",), "zeros")
     if cfg.mtp:
         p["mtp"] = {"proj": Spec((2 * d, d), ("embed", "embed2")),
                     "attn": A.mla_specs(cfg), "mlp": _mlp_specs(cfg),
@@ -113,7 +138,7 @@ def param_specs(cfg):
 def cache_specs(cfg, B: int, T: int):
     _check_family(cfg)
     fam = cfg.family
-    if fam == "dense":
+    if fam in ("dense", "vlm"):
         one = lambda: {"attn": A.cache_spec_gqa(cfg, B, T)}  # noqa: E731
     elif fam == "gemma3":
         one = lambda: {  # noqa: E731
@@ -127,6 +152,19 @@ def cache_specs(cfg, B: int, T: int):
             c["prefix"] = {f"l{i}": A.cache_spec_mla(cfg, B, T)
                            for i in range(cfg.first_dense_layers)}
         return c
+    elif fam == "ssm":
+        one = lambda: {  # noqa: E731
+            "m": [X.mlstm_cache_spec(cfg, B)
+                  for _ in range(cfg.superblock - 1)],
+            "s": X.slstm_cache_spec(cfg, B)}
+    elif fam == "audio":
+        kv = ("cache_batch", "cache_seq", "kv_heads", "head_dim")
+        shape = (B, cfg.encoder_len, cfg.n_kv_heads, cfg.dh)
+        return {"dec": [{"self": A.cache_spec_gqa(cfg, B, T)}
+                        for _ in range(cfg.n_superblocks)],
+                "cross": [{"k": Spec(shape, kv, "zeros"),
+                           "v": Spec(shape, kv, "zeros")}
+                          for _ in range(cfg.n_superblocks)]}
     else:
         one = lambda: {  # noqa: E731
             "mamba": [S.mamba2_cache_spec(cfg, B)
@@ -138,7 +176,8 @@ def cache_specs(cfg, B: int, T: int):
 # ---------------------------------------------------------------------------
 # Blocks: forward(cfg, x, shared, want_cache) -> (x, cache | None, aux) and
 # step(cfg, x, shared, cache, pos) -> (x, cache); ``shared`` is the hybrid
-# family's weight-tied block, unused by the others
+# family's weight-tied block, or the audio family's cross keys and values
+# for the block, unused by the others
 # ---------------------------------------------------------------------------
 _NO_AUX = 0.0
 
@@ -265,15 +304,68 @@ class Gemma3Block(Params):
         return x, out
 
 
-_BLOCK = {"dense": DenseBlock, "hybrid": HybridBlock, "moe": MoEBlock,
-          "gemma3": Gemma3Block}
+class XLSTMBlock(Params):
+    """{m: [(superblock - 1) x mLSTM], s: sLSTM}."""
+
+    def forward(self, cfg, x, shared=None, want_cache=False):
+        mcs = []
+        for mp in self["m"]:
+            y, c = X.mlstm_fwd(mp, x, cfg, want_cache=want_cache)
+            x = x + y
+            mcs.append(c)
+        y, c = X.slstm_fwd(self["s"], x, cfg, want_cache=want_cache)
+        return x + y, ({"m": mcs, "s": c} if want_cache else None), _NO_AUX
+
+    def step(self, cfg, x, shared, cache, pos):
+        mcs = []
+        for mp, ci in zip(self["m"], cache["m"]):
+            y, c = X.mlstm_step(mp, x, cfg, ci)
+            x = x + y
+            mcs.append(c)
+        y, c = X.slstm_step(self["s"], x, cfg, cache["s"])
+        return x + y, {"m": mcs, "s": c}
+
+
+class EncoderBlock(Params):
+    """{attn, mlp}: one layer of the audio encoder, non-causal, no RoPE."""
+
+    def forward(self, cfg, h):
+        y, _ = A.gqa_fwd(self["attn"], h, cfg, theta=0.0, causal=False)
+        h = h + y
+        return h + _mlp_fwd(self["mlp"], h, cfg)
+
+
+class DecoderBlock(Params):
+    """{self, cross, mlp}: the audio family's decoder layer; ``shared`` is
+    its cross keys and values."""
+
+    def forward(self, cfg, x, shared, want_cache=False):
+        y, c = A.gqa_fwd(self["self"], x, cfg, theta=0.0,
+                         want_cache=want_cache)
+        x = x + y
+        x = x + A.cross_fwd(self["cross"], x, shared, cfg)
+        x = x + _mlp_fwd(self["mlp"], x, cfg)
+        return x, ({"self": c} if want_cache else None), _NO_AUX
+
+    def step(self, cfg, x, shared, cache, pos):
+        y, c = A.gqa_step(self["self"], x, cfg, cache["self"], pos, theta=0.0)
+        x = x + y
+        x = x + A.cross_step(self["cross"], x, shared, cfg)
+        x = x + _mlp_fwd(self["mlp"], x, cfg)
+        return x, {"self": c}
+
+
+_BLOCK = {"dense": DenseBlock, "vlm": DenseBlock, "hybrid": HybridBlock,
+          "moe": MoEBlock, "gemma3": Gemma3Block, "ssm": XLSTMBlock,
+          "audio": DecoderBlock}
 
 
 class LM(nn.Module):
     """The parameters of one model: ``embed``, ``final_ln``, ``blocks``
     (one block module each) and, where the family has them, ``prefix``
     (the MoE family's dense layers, ``PrefixBlock``s by name), ``shared``
-    (the hybrid family's tied block) and ``mtp``."""
+    (the hybrid family's tied block), ``projector`` (vlm), ``encoder``
+    (``EncoderBlock``s) and ``enc_ln`` (audio) and ``mtp``."""
 
     def __init__(self, cfg, tree: dict):
         super().__init__()
@@ -287,6 +379,13 @@ class LM(nn.Module):
             {k: PrefixBlock(v) for k, v in tree["prefix"].items()}) \
             if "prefix" in tree else None
         self.shared = Params(tree["shared"]) if "shared" in tree else None
+        self.projector = Params(tree["projector"]) \
+            if "projector" in tree else None
+        self.encoder = nn.ModuleList(
+            EncoderBlock(e) for e in tree["encoder"]) \
+            if "encoder" in tree else None
+        self.enc_ln = nn.Parameter(tree["enc_ln"], requires_grad=False) \
+            if "enc_ln" in tree else None
         self.mtp = Params(tree["mtp"]) if "mtp" in tree else None
 
     @property
@@ -310,32 +409,66 @@ def init(cfg, generator: torch.Generator, dtype=torch.bfloat16,
 # ---------------------------------------------------------------------------
 # Whole-model forward
 # ---------------------------------------------------------------------------
-def _cache_tree(cfg, prefix_caches, caches):
-    if cfg.family != "moe":
-        return caches
-    out = {"scan": caches}
-    if prefix_caches:
-        out["prefix"] = prefix_caches
-    return out
+def _cache_tree(cfg, prefix_caches, caches, cross):
+    if cfg.family == "moe":
+        out = {"scan": caches}
+        if prefix_caches:
+            out["prefix"] = prefix_caches
+        return out
+    if cfg.family == "audio":
+        return {"dec": caches, "cross": cross}
+    return caches
+
+
+def _inject_inputs(params, cfg, batch):
+    """Token embeddings (B,S,d), with the vlm family's projected patches in
+    place of the first ``n_patches`` (rms_norm over vit_dim, tanh-GELU,
+    w2) and the audio family's sinusoid positions added."""
+    x = L.embed(params["embed"], batch["tokens"], cfg.d_model)
+    if cfg.family == "vlm" and "patches" in batch:
+        pp = params["projector"]
+        h = L.rms_norm(batch["patches"], pp["ln"], cfg.norm_eps)
+        h = L.act_fn("gelu")(h.to(pp["w1"].dtype) @ pp["w1"])
+        h = (h @ pp["w2"]).to(x.dtype)
+        x = torch.cat([h, x[:, h.shape[1]:]], dim=1)
+    if cfg.family == "audio":
+        x = x + L.sinusoid_pos_emb(x.shape[1], cfg.d_model,
+                                   device=x.device).to(x.dtype)
+    return x
+
+
+def _encode(params, cfg, frames):
+    """The audio encoder over ``frames`` (B, encoder_len, d): sinusoid
+    positions, the non-causal layers, then ``enc_ln``."""
+    h = frames + L.sinusoid_pos_emb(frames.shape[1], cfg.d_model,
+                                    device=frames.device).to(frames.dtype)
+    for ep in params["encoder"]:
+        h = ep(cfg, h)
+    return L.rms_norm(h, params["enc_ln"], cfg.norm_eps)
 
 
 def forward(params, cfg, batch, *, want_cache=False, return_hidden=False):
     """Full-sequence forward. Returns (logits | hidden, aux, cache|None)."""
-    x = L.embed(params["embed"], batch["tokens"], cfg.d_model)
+    x = _inject_inputs(params, cfg, batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     prefix = {}
     for name, bp in (params.get("prefix") or {}).items():
         x, prefix[name], _ = bp(cfg, x, None, want_cache)
     shared = params.get("shared")
-    caches = []
+    memory = _encode(params, cfg, batch["frames"]) \
+        if cfg.family == "audio" else None
+    caches, cross = [], []
     for bp in params["blocks"]:
+        if memory is not None:
+            shared = A.cross_memory(bp["cross"], memory, cfg)
+            cross.append(shared)
         x, c, a = bp(cfg, x, shared, want_cache)
         aux = aux + a
         caches.append(c)
     x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
     logits = x if return_hidden else L.unembed(params["embed"], x)
-    return logits, aux, (_cache_tree(cfg, prefix, caches) if want_cache
-                         else None)
+    return logits, aux, (_cache_tree(cfg, prefix, caches, cross)
+                         if want_cache else None)
 
 
 def prefill(params, cfg, batch):
@@ -351,17 +484,26 @@ def decode_step(params, cfg, token, pos, cache):
     """token: (B,1) int; pos: int. Returns (logits (B,V), cache), the cache
     updated in place."""
     x = L.embed(params["embed"], token, cfg.d_model)
+    if cfg.family == "audio":
+        # the sinusoid at ``pos``, computed in fp32
+        x = x + L.sinusoid_pos_emb(1, cfg.d_model, offset=int(pos),
+                                   device=x.device).to(x.dtype)
     prefix = {}
     for name, bp in (params.get("prefix") or {}).items():
         x, prefix[name] = bp.step(cfg, x, None, cache["prefix"][name], pos)
-    shared = params.get("shared")
+    blocks = params["blocks"]
+    if cfg.family == "audio":
+        block_caches, shared = cache["dec"], cache["cross"]
+    else:
+        block_caches = cache["scan"] if cfg.family == "moe" else cache
+        shared = [params.get("shared")] * len(blocks)
     new = []
-    for bp, ci in zip(params["blocks"],
-                      cache["scan"] if cfg.family == "moe" else cache):
-        x, c = bp.step(cfg, x, shared, ci, pos)
+    for bp, ci, sh in zip(blocks, block_caches, shared):
+        x, c = bp.step(cfg, x, sh, ci, pos)
         new.append(c)
     x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
-    return L.unembed(params["embed"], x)[:, 0], _cache_tree(cfg, prefix, new)
+    return L.unembed(params["embed"], x)[:, 0], \
+        _cache_tree(cfg, prefix, new, shared)
 
 
 def serve_step(params, cfg, token, pos, cache):

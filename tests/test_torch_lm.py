@@ -1,5 +1,5 @@
 """The port's LM serving path (dense and hybrid families) vs the JAX
-reference, on the CPU.
+reference, on the CPU; and that every arch of the reference is ported.
 
 Here ``flash_attention_cuda`` and ``mamba2_ssd_cuda`` take their plain
 PyTorch path (the tensors lie on the CPU); the CUDA kernels themselves are
@@ -53,7 +53,7 @@ from repro_torch.models import model as pm
 from repro_torch.models import ssm as PS
 from repro_torch.models.params import Spec, init_params as p_init_params
 
-ARCHS = ["zamba2-2.7b", "tinyllama-1.1b"]
+ARCHS = ["zamba2-2.7b", "tinyllama-1.1b", "codeqwen1.5-7b", "starcoder2-15b"]
 B, GEN = 2, 16
 TOL = 1e-5
 BF16_REL = 2e-2
@@ -303,24 +303,33 @@ def test_configs_copy_the_reference(arch):
         dataclasses.asdict(cb.smoke(arch))
 
 
-def test_unported_families_raise():
-    """What stays unported raises, naming its ROADMAP item: the xLSTM
-    (ssm) and audio families, the int8 KV cache (GQA and MLA) and
-    cross-attention."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        pcb.get("xlstm-1.3b")
-    for family in ("ssm", "audio"):
-        other = pcb.smoke("tinyllama-1.1b").replace(family=family)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            pm.param_specs(other)
-    cfg = pcb.smoke("tinyllama-1.1b")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        PA.cache_spec_gqa(cfg.replace(kv_cache_dtype="int8"), 1, 4)
-    mla = pcb.smoke("deepseek-v2-236b").replace(kv_cache_dtype="int8")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        PA.cache_spec_mla(mla, 1, 4)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        PA.cross_fwd({}, torch.zeros(1, 4, cfg.d_model), {}, cfg)
+@pytest.mark.parametrize("arch", cb.ARCH_IDS)
+def test_every_arch_is_ported(arch):
+    """Every arch of the reference resolves in the port, to the reference's
+    full and smoke configs, and its parameter and cache specs build as the
+    reference's (nothing allocated)."""
+    assert pcb.PORTED == cb.ARCH_IDS == pcb.ARCH_IDS
+    assert pm.FAMILIES == ("dense", "vlm", "hybrid", "moe", "gemma3", "ssm",
+                           "audio")
+    for pick in ("get", "smoke"):
+        cfg, pcfg = getattr(cb, pick)(arch), getattr(pcb, pick)(arch)
+        assert dataclasses.asdict(pcfg) == dataclasses.asdict(cfg)
+        assert _shapes(pm.param_specs(pcfg)) == _shapes(rm.param_specs(cfg))
+        assert _shapes(pm.cache_specs(pcfg, 2, 9)) == \
+            _shapes(rm.cache_specs(cfg, 2, 9))
+
+
+@pytest.mark.parametrize("arch", ["codeqwen1.5-7b", "deepseek-v2-236b",
+                                  "gemma3-12b"])
+def test_int8_cache_specs_build(arch):
+    """``kv_cache_dtype="int8"``: the GQA (full and ring) and MLA cache
+    specs are the reference's, int8 rows with fp32 scales."""
+    cfg = cb.smoke(arch).replace(kv_cache_dtype="int8")
+    pcfg = pcb.smoke(arch).replace(kv_cache_dtype="int8")
+    got, want = _shapes(pm.cache_specs(pcfg, 2, 9)), \
+        _shapes(rm.cache_specs(cfg, 2, 9))
+    assert got == want
+    assert {"int8", "float32"} <= {v[1] for v in got.values()}
 
 
 def _dtype_name(dt):

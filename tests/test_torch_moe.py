@@ -344,25 +344,43 @@ def stack(tree):
 _RUNS = {}
 
 
-def lm_run(arch, dtype, S):
-    """Both sides on the same weights and prompt: prefill, then GEN - 1
-    decode steps.  fp32 decodes greedily on each side; bf16 feeds the
-    reference's greedy tokens to both (teacher forcing).  Returns a dict of
-    numpy results (cached per argument)."""
-    key = (arch, dtype, S)
+def modality_inputs(cfg, dtype, seed=0):
+    """The vlm family's ``patches`` or the audio family's ``frames``, N(0, 1)
+    from a seed with numpy, in ``dtype`` ("fp32" or "bf16"): (reference's
+    dict, port's dict); empty for the other families."""
+    shape = {"vlm": (B, cfg.n_patches, cfg.vit_dim),
+             "audio": (B, cfg.encoder_len, cfg.d_model)}.get(cfg.family)
+    if shape is None:
+        return {}, {}
+    name = "patches" if cfg.family == "vlm" else "frames"
+    a = np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+    if dtype == "fp32":
+        return {name: jnp.asarray(a)}, {name: _t(a)}
+    return {name: jnp.asarray(a, jnp.bfloat16)}, {name: _t(a).bfloat16()}
+
+
+def lm_run(arch, dtype, S, **replace):
+    """Both sides on the same weights, prompt and modality inputs, the smoke
+    config with ``replace``'s fields: prefill, then GEN - 1 decode steps.
+    fp32 decodes greedily on each side; bf16 feeds the reference's greedy
+    tokens to both (teacher forcing).  Returns a dict of numpy results
+    (cached per argument)."""
+    key = (arch, dtype, S, tuple(sorted(replace.items())))
     if key in _RUNS:
         return _RUNS[key]
-    cfg, pcfg = cb.smoke(arch), pcb.smoke(arch)
+    cfg, pcfg = cb.smoke(arch).replace(**replace), \
+        pcb.smoke(arch).replace(**replace)
     jdt = jnp.float32 if dtype == "fp32" else jnp.bfloat16
     tdt = torch.float32 if dtype == "fp32" else torch.bfloat16
     params = _ref_params(cfg, jdt)
     lm = convert.lm_params(pcfg, jax.tree.map(np.asarray, params))
     toks = np.random.default_rng(S).integers(
         0, cfg.vocab_size, (B, S)).astype(np.int32)
+    ref_in, port_in = modality_inputs(cfg, dtype)
     T = S + GEN
     # the reference, as run_lm runs it (caches in the weights' dtype)
     last, cache = jax.jit(lambda p, b: rm.prefill(p, cfg, b))(
-        params, {"tokens": jnp.asarray(toks)})
+        params, {"tokens": jnp.asarray(toks), **ref_in})
     cache_t = jax.tree.map(lambda a: a.astype(jdt) if a.dtype == jnp.bfloat16
                            else a, rsp.init_cache(cfg, B, T))
     prefill_cache = cache
@@ -378,7 +396,7 @@ def lm_run(arch, dtype, S):
     ref_toks.append(np.asarray(tok))
     # the port
     with torch.inference_mode():
-        plast, pcache = pm.prefill(lm, pcfg, {"tokens": _t(toks)})
+        plast, pcache = pm.prefill(lm, pcfg, {"tokens": _t(toks), **port_in})
         port_prefill_cache = stack(pcache)
         pc = serve._tree_map2(serve._put, psp.init_cache(pcfg, B, T,
                                                          dtype=tdt), pcache)
@@ -396,7 +414,8 @@ def lm_run(arch, dtype, S):
         "ref_toks": np.concatenate(ref_toks, 1),
         "port_toks": np.concatenate(port_toks, 1),
         "ref_cache": _flat(prefill_cache), "port_cache":
-        _flat(port_prefill_cache), "lm": lm, "tokens": toks}
+        _flat(port_prefill_cache), "lm": lm, "tokens": toks,
+        "inputs": port_in}
     return out
 
 
