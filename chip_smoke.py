@@ -88,8 +88,8 @@ Phases, each printing its lines; any failure exits non-zero:
    batch 8, prompt 2048, 32 generated tokens, in bf16 and then in fp32;
    then in bf16 ``deepseek-v2-236b`` (14 layers) and ``deepseek-v3-671b``
    (6 layers), both with int8 experts quantised from bf16 draws, the whole
-   ``gemma3-12b``, ``codeqwen1.5-7b`` and ``starcoder2-15b``,
-   ``internvl2-26b`` cut to 38 layers (with 256 random patches),
+   ``gemma3-12b`` and ``codeqwen1.5-7b``, ``starcoder2-15b`` and
+   ``internvl2-26b`` (with 256 random patches) cut to 20 layers each,
    ``whisper-base`` (1500 random frames, prompt 416, so 448 positions)
    and ``xlstm-1.3b`` (``LM_CUTS``, ``LM_PROMPTS``); each run must launch
    the SSD kernel once per Mamba-2 layer and the flash kernel once per
@@ -119,7 +119,27 @@ Phases, each printing its lines; any failure exits non-zero:
    each of the ten archs, which serves the smoke config (head dim 16,
    or MLA's 24 / 16, which the wrapper pads to the kernel's 32 / 32) in
    bf16 on the card; its tokens must be in range and the flash kernel
-   must have launched once per attention application (xlstm: none).
+   must have launched once per attention application (xlstm: none);
+12. LM training: ``tinyllama-1.1b`` (global batch 16) and ``zamba2-2.7b``
+   (4) at their published widths in fp32, sequence 2048, AdamW with
+   clipping at 1.0, remat on, ``auto_microbatches`` giving 2 microbatches
+   each.  For each model: one microbatch's loss and every gradient with
+   the kernels, with their plain versions and with the planted fault,
+   on the same weights and batch (the kernels' gradients wait on the
+   host), the loss held by its relative error and each leaf's gradient
+   by its relative Frobenius error against the plain run's, each bound
+   between the readings and the planted fault's; the launches of that
+   microbatch (each block twice: forward and remat's recompute); then
+   ``train.main`` for TRAIN_STEPS steps, the loss falling, and for
+   tinyllama a second run that crashes at TRAIN_FAIL_AT, restores the
+   step-TRAIN_CKPT_EVERY checkpoint and replays, its final loss within
+   1e-3 of the clean run's; the step wall ms, tokens/s and peak memory
+   from ``train.main``'s own lines; and, from two steps of the clean
+   run traced in place (``TRAIN_TRACES``), the device idle share of one
+   step against its own wall time (the device's activity alone traced,
+   the least the profiler adds on the host), and the device ms of the
+   flash and SSD forwards, of the plain backwards and of the rest in
+   the next (the host's activity traced too).
 Each run of a main path sets the kernels' launch counts to 0 just before
 it and reads them just after.
 
@@ -129,6 +149,7 @@ limit and a JSON object with each kernel's numbers; the final line is
 """
 from __future__ import annotations
 
+import bisect
 import contextlib
 import gc
 import io
@@ -157,13 +178,15 @@ SHARDS = 4
 DTYPES = ("fp32", "bf16", "int8")
 LM_DTYPES = ("bf16", "fp32")
 LM_ARCHS = ("zamba2-2.7b", "tinyllama-1.1b")
-# served in bf16 only, each cut only where 80 GB forces it: as many layers
-# as leave the fp32 reference run of the same weights about 8 GiB under the
+# served in bf16 only, each cut where 80 GB forces it: as many layers as
+# leave the fp32 reference run of the same weights about 8 GiB under the
 # card's 79.18 GiB (PERF.md §4 sizes each cut from the bytes a layer added
 # to that run's peak on the card).  DeepSeek-V2 to 14 layers (1 dense + 13
 # MoE) and DeepSeek-V3 to 6 (3 dense + 3 MoE), both with int8 experts
-# quantised from bf16 draws; internvl2-26b to 38 of its 48 layers (its
-# fp32 copy alone is 74 GiB); the others whole
+# quantised from bf16 draws.  starcoder2-15b (40 layers) and internvl2-26b
+# (48; its fp32 copy alone is 74 GiB) to 20 each, for the script's time:
+# with phase 12 it reached 1099 s of its 1200 (PERF.md §4); their layers
+# are the dense GQA layers codeqwen runs whole.  The others whole
 LM_BF16_ARCHS = ("deepseek-v2-236b", "deepseek-v3-671b", "gemma3-12b",
                  "codeqwen1.5-7b", "starcoder2-15b", "internvl2-26b",
                  "whisper-base", "xlstm-1.3b")
@@ -171,7 +194,8 @@ LM_CUTS = {"deepseek-v2-236b": {"n_layers": 14,
                                 "expert_weights_dtype": "int8"},
            "deepseek-v3-671b": {"n_layers": 6,
                                 "expert_weights_dtype": "int8"},
-           "internvl2-26b": {"n_layers": 38}}
+           "starcoder2-15b": {"n_layers": 20},
+           "internvl2-26b": {"n_layers": 20}}
 LM_BATCH, LM_PROMPT, LM_GEN = 8, 2048, 32
 # whisper's prompt: prompt + generated tokens = 448, its decoder context
 LM_PROMPTS = {"whisper-base": 416}
@@ -1565,12 +1589,16 @@ def planted_kernels(ops):
     the later half of the positions PLANT times too large."""
     flash, ssd = ops.flash_attention, ops.mamba2_ssd
 
+    # the outputs are copied first: autograd forbids writing in place into
+    # a view that a custom Function returned (the flash output is one)
     def bad_ssd(*a):
         y, state = ssd(*a)
+        y = y.clone()
         y[:, y.shape[1] // 2:] *= PLANT
         return y, state
 
-    return Kernels(ops, lambda *a, **kw: planted(flash(*a, **kw)), bad_ssd)
+    return Kernels(ops, lambda *a, **kw: planted(flash(*a, **kw).clone()),
+                   bad_ssd)
 
 
 def call_key(name, kw):
@@ -2198,6 +2226,322 @@ def phase_lm_default(torch, serve, FA):
               f"tokens {tuple(toks.shape)} in range, flash launches {n_fa}")
 
 
+# phase 12: training.  (global batch, sequence) of each model, trained in
+# fp32 at its published widths with AdamW, clipping at 1.0, remat on;
+# auto_microbatches must give 2 microbatches for each
+TRAIN = {"tinyllama-1.1b": (16, 2048), "zamba2-2.7b": (4, 2048)}
+TRAIN_MICRO = 2
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 6, 3, 4
+# the clean run's steps (0-based) traced, with the activities each
+# records: the device's alone for the idle share, the host's too for the
+# device split (which matches kernels to the plain backwards' ranges)
+TRAIN_TRACES = {2: ("CUDA",), 3: ("CPU", "CUDA")}
+# the peak learning rate (train.main warms up over 20 steps): at full width
+# a fresh model's fp32 AdamW diverged after one update at 3e-4 (PERF.md §6)
+TRAIN_LR = 1e-4
+# kernels vs plain through one microbatch's loss and gradients: the loss
+# relative to the plain run's, each leaf's gradient by the Frobenius norm of
+# the difference relative to the plain run's; each bound sits between the
+# readings and the planted fault's (PERF.md §6)
+TRAIN_LOSS_REL = 1e-6
+TRAIN_GRAD_REL = 1e-3
+RECOVER_TOL = 1e-3      # the reference's tests/test_system.py bound
+# the plain backwards' record_function ranges -> their share's name
+BACKWARD_RANGES = {"flash_attention.backward": "flash_backward",
+                   "mamba2_ssd.backward": "ssd_backward"}
+
+
+def train_model(torch, arch):
+    """(cfg, trainable fp32 model drawn on the card from seed 0, the first
+    batch of the stream ``train.main`` reads, as tensors on the card)."""
+    from repro_torch.configs import base as cb
+    from repro_torch.data import DataConfig, TokenStream
+    from repro_torch.models import model as mdl
+    from repro_torch.models.params import trainable
+    cfg = cb.get(arch)
+    B, S = TRAIN[arch]
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    lm = trainable(mdl.init(cfg, gen, torch.float32, DEV))
+    batch = TokenStream(DataConfig(seed=1, vocab_size=cfg.vocab_size,
+                                   seq_len=S, global_batch=B)).batch_at(0)
+    return cfg, lm, {k: torch.from_numpy(v).to(DEV) for k, v in batch.items()}
+
+
+def loss_and_grads(torch, mdl, lm, cfg, micro, kernels):
+    """One microbatch's loss (a float) and every gradient, with ``kernels``
+    (a ``Kernels`` block or a null context) in place."""
+    for p in lm.parameters():
+        p.grad = None
+    with kernels:
+        loss, _ = mdl.loss_fn(lm, cfg, micro)
+        loss.backward()
+    return float(loss.detach()), {n: p.grad for n, p in
+                                  lm.named_parameters()}
+
+
+def grad_err(torch, got, want):
+    """(largest relative Frobenius error of a leaf, that leaf's name); the
+    leaves of ``got`` may lie on the host and come over one at a time."""
+    errs = {n: rel_fro(torch, g.to(DEV), want[n]) for n, g in got.items()}
+    worst = max(errs, key=errs.get)
+    return errs[worst], worst
+
+
+def train_calls(cfg):
+    """(flash, SSD) launches of one microbatch's loss and backward with
+    remat: each block runs twice, once forward and once in the recompute."""
+    n_mamba = cfg.n_layers if cfg.family == "hybrid" else 0
+    return 2 * sum(flash_calls(cfg).values()), 2 * n_mamba
+
+
+def backward_split(torch, prof):
+    """Device ms of a trace: {"total", "flash", "ssd", "backward",
+    "flash_backward", "ssd_backward"}: every kernel; the flash and SSD
+    kernels (forwards and the recompute's); and the kernels launched
+    inside the plain backwards (the ``BACKWARD_RANGES`` record_function
+    ranges), matched to their launch calls by correlation id, in all and
+    by kernel."""
+    from torch.autograd import DeviceType
+    events = list(prof.profiler.kineto_results.events())
+    ranges = sorted((e.start_ns(), e.end_ns(), BACKWARD_RANGES[e.name()])
+                    for e in events if e.device_type() != DeviceType.CUDA
+                    and e.name() in BACKWARD_RANGES)
+    launched = {e.correlation_id(): e.start_ns() for e in events
+                if e.device_type() != DeviceType.CUDA
+                and "Launch" in e.name()}
+    split = dict.fromkeys(("total", "flash", "ssd", "backward",
+                           *BACKWARD_RANGES.values()), 0.0)
+    starts = [r[0] for r in ranges]
+    for e in events:
+        # (a record_function range also shows as a device-side annotation
+        # spanning its kernels: not a kernel, not counted)
+        if e.device_type() != DeviceType.CUDA or e.is_user_annotation() \
+                or e.name() in BACKWARD_RANGES:
+            continue
+        ms, name = e.duration_ns() / 1e6, e.name()
+        split["total"] += ms
+        if "flash_bf16_kernel" in name or "flash_f32_kernel" in name:
+            split["flash"] += ms
+        elif "ssd_" in name:
+            split["ssd"] += ms
+        t = launched.get(e.correlation_id())
+        if t is not None:
+            i = bisect.bisect_right(starts, t) - 1
+            if i >= 0 and t <= ranges[i][1]:
+                split["backward"] += ms
+                split[ranges[i][2]] += ms
+    if ranges and not split["backward"]:
+        raise AssertionError("train: no kernel matched the plain backward's "
+                             "ranges in the trace")
+    return split
+
+
+def train_check(torch, FA, SSD, arch):
+    """Phase 12's check of one model: one microbatch's loss and gradients
+    with the kernels, with their plain versions and with a planted fault;
+    the launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models import model as mdl
+    t0 = time.perf_counter()
+    cfg, lm, batch = train_model(torch, arch)
+    B, S = TRAIN[arch]
+    n_micro = steps.auto_microbatches(cfg, B, S)
+    if n_micro != TRAIN_MICRO:
+        raise AssertionError(f"train {arch}: auto_microbatches gave "
+                             f"{n_micro}, want {TRAIN_MICRO}")
+    micro = {k: v[:B // n_micro] for k, v in batch.items()}
+    torch.cuda.reset_peak_memory_stats()
+    FA.launches = SSD.launches = 0
+    loss_k, g = loss_and_grads(torch, mdl, lm, cfg, micro,
+                               contextlib.nullcontext())
+    launches = (FA.launches, SSD.launches)
+    peak_micro = torch.cuda.max_memory_allocated() / 2**30
+    if launches != train_calls(cfg):
+        raise AssertionError(f"train {arch}: a microbatch launched flash "
+                             f"{launches[0]}, ssd {launches[1]} times, want "
+                             f"{train_calls(cfg)}")
+    # the kernels' gradients wait on the host: two sets of zamba2's fp32
+    # gradients and its weights would crowd the card
+    g_kernels = {n: t.to("cpu") for n, t in g.items()}
+    del g
+    loss_p, g_plain = loss_and_grads(torch, mdl, lm, cfg, micro,
+                                     plain_kernels(ops, FA, SSD))
+    loss_b, g_bad = loss_and_grads(torch, mdl, lm, cfg, micro,
+                                   planted_kernels(ops))
+    l_err = abs(loss_k - loss_p) / abs(loss_p)
+    l_bad = abs(loss_b - loss_p) / abs(loss_p)
+    g_err, g_leaf = grad_err(torch, g_kernels, g_plain)
+    b_err, b_leaf = grad_err(torch, g_bad, g_plain)
+    del g_kernels, g_plain, g_bad
+    t_check = time.perf_counter() - t0
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_fa, n_ssd = launches
+    print(f"[train-check] {arch}: fp32, {cfg.n_layers} layers x d "
+          f"{cfg.d_model}, batch {B} x {S} in {n_micro} microbatches; one "
+          f"microbatch's loss {loss_k:.6f} and gradients, kernels vs plain: "
+          f"loss rel {l_err:.3g} (bound {TRAIN_LOSS_REL}), gradients max "
+          f"rel {g_err:.3g} at {g_leaf} (bound {TRAIN_GRAD_REL}); planted "
+          f"fault: loss rel {l_bad:.3g}, gradients {b_err:.3g} at {b_leaf}; "
+          f"launches a microbatch flash={n_fa} ssd={n_ssd} (with remat's "
+          f"recompute); peak {peak_micro:.2f} GiB a microbatch; check took "
+          f"{t_check:.1f} s")
+    # (raised after the lines above, so that a failure shows every reading)
+    if not (math.isfinite(loss_k) and l_err <= TRAIN_LOSS_REL < l_bad
+            and g_err <= TRAIN_GRAD_REL < b_err):
+        raise AssertionError(
+            f"train {arch}: kernels vs plain loss {l_err:.3g}, gradients "
+            f"{g_err:.3g} ({g_leaf}); planted fault loss {l_bad:.3g}, "
+            f"gradients {b_err:.3g} ({b_leaf}); bounds {TRAIN_LOSS_REL}, "
+            f"{TRAIN_GRAD_REL}")
+
+
+@contextlib.contextmanager
+def traced_step(torch, train, into):
+    """Within the block, each of ``train.main``'s steps with an index in
+    TRAIN_TRACES runs under the profiler with that entry's activities,
+    the device synchronised on each side; ``into[index]`` gets the step's
+    (wall ms, trace)."""
+    from torch.profiler import ProfilerActivity, profile
+    make = train.make_train_step
+
+    def make_traced(*a, **kw):
+        step_fn = make(*a, **kw)
+
+        def step(params, opt_state, batch, i):
+            if i not in TRAIN_TRACES:
+                return step_fn(params, opt_state, batch, i)
+            torch.cuda.synchronize()
+            with profile(activities=[getattr(ProfilerActivity, a)
+                                     for a in TRAIN_TRACES[i]]) as prof:
+                t = time.perf_counter()
+                out = step_fn(params, opt_state, batch, i)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t) * 1e3
+            into[i] = (wall, prof)
+            return out
+        return step
+
+    train.make_train_step = make_traced
+    try:
+        yield
+    finally:
+        train.make_train_step = make
+
+
+def train_runs(torch, FA, SSD, arch):
+    """``train.main`` on the card: for tinyllama a clean run and a run that
+    crashes at TRAIN_FAIL_AT and recovers from the step-TRAIN_CKPT_EVERY
+    checkpoint, whose final losses must agree within RECOVER_TOL; for
+    zamba2 the steps alone.  The loss must fall.  The clean run's step
+    steps in TRAIN_TRACES are traced (``traced_step``): one step's idle
+    share against its own wall time, the next one's device split.
+    Returns the runs' (flash, SSD) launches."""
+    import shutil
+    from repro_torch.launch import train
+    B, S = TRAIN[arch]
+    ckpt = ROOT / "build" / "ckpt"
+    common = ["--arch", arch, "--steps", str(TRAIN_STEPS), "--batch",
+              str(B), "--seq", str(S), "--n-micro", str(TRAIN_MICRO),
+              "--lr", str(TRAIN_LR),
+              "--log-every", "1", "--device", DEV]
+    runs = [("clean", ["--ckpt-every", str(TRAIN_STEPS + 1)])]
+    if arch == "tinyllama-1.1b":
+        runs.append(("recovered", ["--ckpt-every", str(TRAIN_CKPT_EVERY),
+                                   "--simulate-failure", str(TRAIN_FAIL_AT)]))
+    out = {}
+    # steps run: the crashed run's TRAIN_FAIL_AT, then the replay from the
+    # checkpoint
+    n_steps = TRAIN_STEPS + (TRAIN_FAIL_AT + TRAIN_STEPS - TRAIN_CKPT_EVERY
+                             if len(runs) > 1 else 0)
+    traced = {}
+    FA.launches = SSD.launches = 0
+    for name, extra in runs:
+        shutil.rmtree(ckpt, ignore_errors=True)
+        buf = io.StringIO()
+        trace = traced_step(torch, train, traced) if name == "clean" else \
+            contextlib.nullcontext()
+        t0 = time.perf_counter()
+        try:
+            with trace, contextlib.redirect_stdout(buf):
+                final = train.main(common + extra + ["--ckpt-dir", str(ckpt)])
+        finally:
+            print(buf.getvalue(), end="")
+        secs = time.perf_counter() - t0
+        text = buf.getvalue()
+        losses = [float(x) for x in
+                  re.findall(r"\] step +\d+ loss +([0-9.]+)", text)]
+        walls = [float(x) for x in re.findall(r"step wall ms ([0-9.]+)",
+                                              text)]
+        peak = max((float(x) for x in re.findall(r"peak GiB ([0-9.]+)",
+                                                 text)), default=math.nan)
+        if not (math.isfinite(final) and losses[-1] < losses[0]):
+            raise AssertionError(f"train {arch} {name}: the loss did not "
+                                 f"fall: {losses}")
+        out[name] = (final, losses, walls, peak, secs)
+        gc.collect()
+        torch.cuda.empty_cache()
+    shutil.rmtree(ckpt, ignore_errors=True)
+    launches = (FA.launches, SSD.launches)
+    cfg = lm_config(arch)       # no cuts: the published config
+    want = tuple(n * n_steps * TRAIN_MICRO for n in train_calls(cfg))
+    if launches != want:
+        raise AssertionError(f"train {arch}: train.main launched flash "
+                             f"{launches[0]}, ssd {launches[1]} times in "
+                             f"{n_steps} steps, want {want}")
+    final, losses, walls, peak, secs = out["clean"]
+    # the steady steps: neither the first nor a traced one
+    steady = [w for i, w in enumerate(walls)
+              if i and i not in TRAIN_TRACES]
+    ms = sum(steady) / len(steady)
+    (i_idle, (w_idle, p_idle)), (i_split, (w_split, p_split)) = \
+        sorted(traced.items())
+    busy = backward_split(torch, p_idle)["total"]
+    split = backward_split(torch, p_split)
+    del traced, p_idle, p_split
+    txt = ""
+    if "recovered" in out:
+        diff = abs(out["recovered"][0] - final)
+        if not diff < RECOVER_TOL:
+            raise AssertionError(f"train {arch}: recovered final loss "
+                                 f"{out['recovered'][0]} vs clean {final}")
+        txt = (f"; crashed at step {TRAIN_FAIL_AT}, restored step "
+               f"{TRAIN_CKPT_EVERY}, final loss {out['recovered'][0]:.6f}, "
+               f"|diff| {diff:.3g} (bound {RECOVER_TOL}) in "
+               f"{out['recovered'][4]:.1f} s")
+    print(f"[train] {arch}: train.main {TRAIN_STEPS} steps, loss "
+          + " ".join(f"{x:.4f}" for x in losses)
+          + f"; steady step wall_ms={ms:.1f} tok/s="
+          f"{B * S / ms * 1e3:,.0f} peak {peak:.2f} GiB; clean run "
+          f"{secs:.1f} s{txt}; launches flash={launches[0]} "
+          f"ssd={launches[1]} in {n_steps} steps")
+    rest = split["total"] - split["flash"] - split["ssd"] - split["backward"]
+    print(f"[train-time] {arch}: the clean run's untraced steady steps "
+          f"wall_ms={ms:.1f}; step {i_idle + 1} traced (device only) "
+          f"wall_ms={w_idle:.1f} device_ms={busy:.1f}, device idle of that "
+          f"step {1 - busy / w_idle:.1%}; step {i_split + 1} traced (host "
+          f"and device) wall_ms={w_split:.1f} device_ms="
+          f"{split['total']:.1f} = flash forward {split['flash']:.1f} + ssd "
+          f"forward {split['ssd']:.1f} + plain backward "
+          f"{split['backward']:.1f} (flash {split['flash_backward']:.1f}, "
+          f"ssd {split['ssd_backward']:.1f}) + rest {rest:.1f}")
+    return launches
+
+
+def phase_train(torch, FA, SSD):
+    """Phase 12: each model of TRAIN checked and trained; returns the
+    training runs' launches by kernel name."""
+    launches = {"flash_attention[fp32]": 0, "mamba2_ssd[fp32]": 0}
+    for arch in TRAIN:
+        train_check(torch, FA, SSD, arch)
+        n_fa, n_ssd = train_runs(torch, FA, SSD, arch)
+        launches["flash_attention[fp32]"] += n_fa
+        launches["mamba2_ssd[fp32]"] += n_ssd
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2232,6 +2576,11 @@ def main() -> int:
     phase_lm_default(torch, serve, FA)
     print(f"[time] phases 10-11 (LM) took {time.perf_counter() - t_lm:.1f} "
           f"s; the script {time.perf_counter() - T_START:.1f} s")
+    t_train = time.perf_counter()
+    train_launches = phase_train(torch, FA, SSD)
+    print(f"[time] phase 12 (training) took "
+          f"{time.perf_counter() - t_train:.1f} s; the script "
+          f"{time.perf_counter() - T_START:.1f} s")
 
     kernels = []
     for dtype in DTYPES:
@@ -2277,7 +2626,9 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:95",
-            "launches": lm_launches[name], "max_abs_err": f_errs[dtype],
+            "launches": lm_launches[name] + train_launches.get(name, 0),
+            "launches_train": train_launches.get(name, 0),
+            "max_abs_err": f_errs[dtype],
             "ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
             "library_ms": lms, "sass": sass,
             "shape": "B=8 H=32 Kh=32 S=2048 D=80 causal", **more})
@@ -2288,7 +2639,9 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/mamba2_ssd.cu",
             "replaces": "src/repro/kernels/mamba2_ssd.py:82",
-            "launches": lm_launches[name], "max_abs_err": s_errs[dtype],
+            "launches": lm_launches[name] + train_launches.get(name, 0),
+            "launches_train": train_launches.get(name, 0),
+            "max_abs_err": s_errs[dtype],
             "ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
             "fma_bound_ms": fms, "library_ms": None, "path": path,
             "stages_ms": stages, "sass": ssd_sass,

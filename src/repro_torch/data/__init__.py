@@ -1,1 +1,2 @@
-from repro_torch.data.pipeline import FrameStream
+from repro_torch.data.pipeline import (DataConfig, FrameStream, Prefetcher,
+                                       TokenStream)

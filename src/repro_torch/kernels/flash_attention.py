@@ -32,6 +32,11 @@ any other pair up to 256 as the kernel's (P, P), P the larger of D and Dv
 rounded up to 16: q, k and v are zero-padded to P, which adds nothing to
 any score or output, the scale stays D^-1/2, and the output is cut back to
 Dv (a smoke config's MLA, (24, 16), runs so).
+
+Training differentiates through ``FlashAttention``: the kernel forward,
+and as backward the gradient of the plain version in plain PyTorch
+(``flash_attention_backward``), a sequence (or a block of queries) at a
+time.
 """
 from __future__ import annotations
 
@@ -75,9 +80,11 @@ def _library():
     return _lib
 
 
-def _masks(Sq: int, Sk: int, causal: bool, window: int, device):
-    """(Sq, Sk) bool: which keys each query sees (left-aligned)."""
-    qpos = torch.arange(Sq, device=device)[:, None]
+def _masks(Sq: int, Sk: int, causal: bool, window: int, device,
+           q_offset: int = 0):
+    """(Sq, Sk) bool: which keys each query sees (left-aligned); the
+    queries are positions ``q_offset`` on."""
+    qpos = torch.arange(q_offset, q_offset + Sq, device=device)[:, None]
     kpos = torch.arange(Sk, device=device)[None, :]
     mask = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
     if causal:
@@ -100,20 +107,56 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
     and what the kernel is held against on the card.  It takes a few
     sequences at a time where the whole batch's scores would pass
     ``PLAIN_SCORE_BYTES``."""
+    B, H, Sq, _ = q.shape
+    n = max(1, PLAIN_SCORE_BYTES // (H * Sq * k.shape[2] * 4))
+    if B > n:
+        return torch.cat([_plain(q[b:b + n], k[b:b + n], v[b:b + n], causal,
+                                 window, scale) for b in range(0, B, n)])
+    return _plain(q, k, v, causal, window, scale)
+
+
+def _plain(q, k, v, causal, window, scale, q_offset=0):
+    """``flash_attention_plain`` of one piece, its queries at positions
+    ``q_offset`` on."""
     B, H, Sq, D = q.shape
     Kh, Sk = k.shape[1], k.shape[2]
-    n = max(1, PLAIN_SCORE_BYTES // (H * Sq * Sk * 4))
-    if B > n:
-        return torch.cat([flash_attention_plain(
-            q[b:b + n], k[b:b + n], v[b:b + n], causal=causal,
-            window=window, scale=scale) for b in range(0, B, n)])
     qg = q.reshape(B, Kh, H // Kh, Sq, D)
     s = torch.einsum("bkgqd,bksd->bkgqs", qg.float(), k.float()).mul_(
         D ** -0.5 if scale is None else scale)
-    s.masked_fill_(~_masks(Sq, Sk, causal, window, q.device), NEG)
+    s.masked_fill_(~_masks(Sq, Sk, causal, window, q.device, q_offset), NEG)
     p = torch.softmax(s, dim=-1).to(v.dtype)
     o = torch.einsum("bkgqs,bksd->bkgqd", p.float(), v.float())
     return o.reshape(B, H, Sq, v.shape[-1]).to(q.dtype)
+
+
+def flash_attention_backward(q, k, v, do, *, causal: bool = True,
+                             window: int = 0):
+    """(dq, dk, dv): the gradient of ``flash_attention_plain`` at (q, k, v)
+    for the output gradient ``do``, by autograd through the plain version
+    recomputed one piece at a time: a sequence, or a block of its queries
+    where the sequence's (H, Sq, Sk) fp32 scores would pass
+    ``PLAIN_SCORE_BYTES``.  So the backward never holds the whole batch's
+    scores.  Plain PyTorch on every device."""
+    B, H, Sq, _ = q.shape
+    rows = max(1, PLAIN_SCORE_BYTES // (H * k.shape[2] * 4))
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    with torch.profiler.record_function("flash_attention.backward"):
+        for b in range(B):
+            kb = k[b:b + 1].detach().requires_grad_()
+            vb = v[b:b + 1].detach().requires_grad_()
+            gk = gv = 0.0           # summed over the query blocks in fp32
+            for q0 in range(0, Sq, rows):
+                qb = q[b:b + 1, :, q0:q0 + rows].detach().requires_grad_()
+                with torch.enable_grad():
+                    o = _plain(qb, kb, vb, causal, window, None, q0)
+                    g = torch.autograd.grad(
+                        o, (qb, kb, vb), do[b:b + 1, :, q0:q0 + rows])
+                dq[b:b + 1, :, q0:q0 + rows] = g[0]
+                gk, gv = gk + g[1].float(), gv + g[2].float()
+            dk[b:b + 1], dv[b:b + 1] = gk, gv
+    return dq, dk, dv
 
 
 @functools.cache
@@ -207,13 +250,10 @@ def _flash_cuda(q, k, v, causal: bool, window: int, scale=None):
     return o
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True, window: int = 0
-                         ) -> torch.Tensor:
-    """q: (B, H, Sq, D); k/v: (B, Kh, Sk, D[v]).  Returns (B, H, Sq, Dv)
-    in q's dtype: the kernel on a CUDA tensor, the plain version on a CPU
-    tensor."""
-    _check(q, k, v)
+def _forward(q, k, v, causal, window):
+    """The kernel on a CUDA tensor (head dims it has no instance for padded
+    as above), the plain version on a CPU tensor; any other device
+    raises."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if q.device.type == "cuda":
@@ -226,3 +266,38 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         scale=D ** -0.5)
         return o[..., :Dv]
     raise ValueError(f"flash_attention: no kernel for device {q.device}")
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention that autograd differentiates.  Forward: ``_forward``,
+    the hand-written kernel on the card (launched again where a
+    checkpointed block is recomputed).  Backward: the gradient of
+    ``flash_attention_plain`` in plain PyTorch
+    (``flash_attention_backward``).  The plain backward is the gradient
+    the port defines, as the reference defines its own by autodiff of its
+    jnp attention (it has no backward kernel); it is not a fallback, and a
+    hand-written backward kernel is later work.  Its time on the card is
+    in PERF.md."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return _forward(q, k, v, causal, window)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        return (*flash_attention_backward(q, k, v, do, causal=ctx.causal,
+                                          window=ctx.window), None, None)
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, window: int = 0
+                         ) -> torch.Tensor:
+    """q: (B, H, Sq, D); k/v: (B, Kh, Sk, D[v]).  Returns (B, H, Sq, Dv)
+    in q's dtype: the kernel on a CUDA tensor, the plain version on a CPU
+    tensor, through ``FlashAttention`` (which records nothing where grad
+    is off or no input requires it, as in serving)."""
+    _check(q, k, v)
+    return FlashAttention.apply(q, k, v, causal, window)

@@ -29,6 +29,11 @@ rest.  ``last_plan`` holds the path of the last CUDA call.  Asked for
 ``stages``, both the kernel and the plain version also return the staged
 intermediates: the chunk states, each chunk's total log-decay and the
 state entering each chunk.
+
+Training differentiates through ``MambaSSD``: the kernel forward, and as
+backward the gradient of the plain version for x, dt, A, B and C in
+plain PyTorch (``mamba2_ssd_backward``), a sequence at a time; the final
+state takes no gradient.
 """
 from __future__ import annotations
 
@@ -224,6 +229,67 @@ def _ssd_cuda(x, dt, A, B, C, chunk: int, stages: bool):
     return (y, state, staged) if stages else (y, state)
 
 
+def _forward(x, dt, A, B, C, chunk, stages):
+    """The kernel on a CUDA tensor, the plain version on a CPU tensor; any
+    other device raises."""
+    if x.device.type == "cpu":
+        return mamba2_ssd_plain(x, dt, A, B, C, chunk=chunk, stages=stages)
+    _check_kernel(x, dt, A, B, C, chunk)
+    if x.device.type == "cuda":
+        return _ssd_cuda(x, dt, A, B, C, chunk, stages)
+    raise ValueError(f"mamba2_ssd: no kernel for device {x.device}")
+
+
+def mamba2_ssd_backward(x, dt, A, B, C, dy, *, chunk: int):
+    """(dx, ddt, dA, dB, dC): the gradient of ``mamba2_ssd_plain``'s y at
+    (x, dt, A, B, C) for the gradient ``dy``, by autograd through the plain
+    version recomputed one sequence at a time; each in its input's dtype
+    (dA summed over the sequences in fp32).  Plain PyTorch on every
+    device."""
+    outs = [torch.empty_like(t, memory_format=torch.contiguous_format)
+            for t in (x, dt, B, C)]
+    dA = torch.zeros(A.shape, dtype=torch.float32, device=A.device)
+    Af = A.detach().requires_grad_()
+    with torch.profiler.record_function("mamba2_ssd.backward"):
+        for b in range(x.shape[0]):
+            ins = [t[b:b + 1].detach().requires_grad_()
+                   for t in (x, dt, B, C)]
+            with torch.enable_grad():
+                y, _ = mamba2_ssd_plain(ins[0], ins[1], Af, ins[2], ins[3],
+                                        chunk=chunk)
+                g = torch.autograd.grad(y, (*ins, Af), dy[b:b + 1])
+            for out, gi in zip(outs, g):
+                out[b:b + 1] = gi
+            dA += g[4].float()
+    dx, ddt, dB, dC = outs
+    return dx, ddt, dA.to(A.dtype), dB, dC
+
+
+class MambaSSD(torch.autograd.Function):
+    """The SSD scan that autograd differentiates.  Forward: ``_forward``,
+    the hand-written kernel on the card (launched again where a
+    checkpointed block is recomputed).  Backward: the gradient of
+    ``mamba2_ssd_plain`` for x, dt, A, B and C in plain PyTorch
+    (``mamba2_ssd_backward``); the reference differentiates its jnp
+    ``ssd_chunked`` the same way and has no backward kernel.  The plain
+    backward is the gradient the port defines, not a fallback; a
+    hand-written backward kernel is later work.  The final state is not
+    differentiable (training never reads it)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk):
+        y, state = _forward(x, dt, A, B, C, chunk, False)
+        ctx.save_for_backward(x, dt, A, B, C)
+        ctx.chunk = chunk
+        ctx.mark_non_differentiable(state)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, _dstate):
+        return (*mamba2_ssd_backward(*ctx.saved_tensors, dy,
+                                     chunk=ctx.chunk), None)
+
+
 def mamba2_ssd_cuda(x, dt, A, B, C, *, chunk: int = 256,
                     stages: bool = False):
     """x: (Bt, L, H, P); dt: (Bt, L, H); A: (H,); B, C: (Bt, L, N).
@@ -231,12 +297,10 @@ def mamba2_ssd_cuda(x, dt, A, B, C, *, chunk: int = 256,
     chunk ``min(chunk, L)``: the kernel on a CUDA tensor, the plain version
     on a CPU tensor.  With ``stages`` a third item holds the staged
     intermediates (see ``mamba2_ssd_plain``); the general path has none
-    (None)."""
+    (None).  A call without ``stages`` goes through ``MambaSSD`` (which
+    records nothing where grad is off or no input requires it)."""
     chunk = min(chunk, x.shape[1])
     _check(x, dt, A, B, C, chunk)
-    if x.device.type == "cpu":
-        return mamba2_ssd_plain(x, dt, A, B, C, chunk=chunk, stages=stages)
-    _check_kernel(x, dt, A, B, C, chunk)
-    if x.device.type == "cuda":
-        return _ssd_cuda(x, dt, A, B, C, chunk, stages)
-    raise ValueError(f"mamba2_ssd: no kernel for device {x.device}")
+    if stages:
+        return _forward(x, dt, A, B, C, chunk, True)
+    return MambaSSD.apply(x, dt, A, B, C, chunk)

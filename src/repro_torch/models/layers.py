@@ -1,11 +1,10 @@
 """Shared primitives: norms, RoPE, sinusoid positions, gated MLP,
 embeddings.
 
-The port of the reference's ``models/layers.py`` as far as serving uses
-it (the losses port with training).  Casts follow the reference: norms
-compute in fp32 and return the input's dtype, RoPE rotates in fp32,
-matmuls keep their operands' dtype (a bf16 product accumulates in fp32
-and rounds once).
+The port of the reference's ``models/layers.py``, with its losses.  Casts
+follow the reference: norms compute in fp32 and return the input's dtype,
+RoPE rotates in fp32, matmuls keep their operands' dtype (a bf16 product
+accumulates in fp32 and rounds once).
 """
 from __future__ import annotations
 
@@ -13,6 +12,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.params import Spec
 
@@ -133,3 +133,59 @@ def unembed(p, x):
     if w is None:
         w = p["tok"].T
     return x @ w
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+def _label_nll(logits, labels):
+    """(logZ - logit of the label) per position, in fp32.  The label's
+    logit is gathered: the reference sums the logits against a one-hot,
+    which adds exact zeros to the same value."""
+    logits = logits.float()
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.logsumexp(logits, dim=-1) - ll
+
+
+def softmax_xent(logits, labels, mask=None):
+    """Mean next-token CE in f32. logits: (B,S,V); labels: (B,S)."""
+    nll = _label_nll(logits, labels)
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def softmax_xent_fused(embed_p, x, labels, mask=None, chunk=512):
+    """Fused unembed + CE that never holds the (B, S, V) fp32 logits whole:
+    ``chunk`` positions at a time, each chunk's logits (B, chunk, V) made,
+    reduced to its summed NLL and mask count, and dropped.  Where autograd
+    records, each chunk runs under ``torch.utils.checkpoint``, so backward
+    recomputes its logits instead of storing them (the reference's
+    ``jax.checkpoint``'d chunk body; here the remainder's chunk too).
+    Chunks are summed in order, then the remainder, as the reference's
+    scan."""
+    W = embed_p.get("head")
+    if W is None:
+        W = embed_p["tok"].T                       # (d, V)
+    S = x.shape[1]
+    c = min(chunk, S)
+    if mask is None:
+        mask = torch.ones_like(labels)
+
+    def chunk_loss(xc, lc, mc):
+        nll = _label_nll(xc @ W, lc)
+        m = mc.float()
+        return torch.sum(nll * m), torch.sum(m)
+
+    grad = torch.is_grad_enabled()
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, S, c):
+        args = (x[:, i:i + c], labels[:, i:i + c], mask[:, i:i + c])
+        if grad:
+            dt, dn = checkpoint(chunk_loss, *args, use_reentrant=False)
+        else:
+            dt, dn = chunk_loss(*args)
+        tot, cnt = tot + dt, cnt + dn
+    return tot / torch.clamp(cnt, min=1.0)

@@ -29,13 +29,16 @@ walk over the reference's tree that unstacks ``blocks`` and ``encoder``.
 Caches follow the same layout: a list with one dict per block (for the MoE
 family ``{"scan": [...], "prefix": {"l0": ...}}``, for the audio family
 ``{"dec": [...], "cross": [...]}``, as the reference's).  DeepSeek-V3's
-``mtp`` head is in the parameter tree, as the reference's, and unused in
-serving.  The reference runs the MoE prefix layers a second time to build
-their caches, and projects the encoder's output to the cross keys and
-values a second time for the cross cache; here each is done once (the same
-result, one flash launch a layer).
+``mtp`` head is in the parameter tree, as the reference's; only the train
+loss reads it.  The reference runs the MoE prefix layers a second time to
+build their caches, and projects the encoder's output to the cross keys
+and values a second time for the cross cache; here each is done once (the
+same result, one flash launch a layer).
 
 Entry points (of ``(params, cfg, ...)``, as the reference's):
+  loss_fn      train loss (CE + router_aux_coef x MoE aux [+ 0.3 x MTP])
+               and its metrics; ``batch`` adds ``labels`` (and an optional
+               ``mask``)
   forward      logits over a full sequence (prefill path, optional caches),
                and the MoE layers' summed aux loss; ``batch`` holds
                ``tokens`` and, for the vlm and audio families, ``patches``
@@ -44,11 +47,18 @@ Entry points (of ``(params, cfg, ...)``, as the reference's):
   decode_step  one token through the cache -> (logits, cache); the cache is
                updated in place
   serve_step   greedy decode of one token
+
+Training: ``params.trainable`` turns the weights' gradients on.  With
+``cfg.remat`` (the full configs; the smoke configs turn it off, as the
+reference's) each block, encoder block and prefix layer runs under
+``torch.utils.checkpoint`` where autograd records, and backward runs it
+again (the reference's ``nothing_saveable`` policy), kernels included.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -437,13 +447,24 @@ def _inject_inputs(params, cfg, batch):
     return x
 
 
+def _remat(block, cfg, *args):
+    """``block(cfg, *args)``, under ``torch.utils.checkpoint`` where
+    ``cfg.remat`` is on and autograd records: nothing inside is saved, and
+    backward recomputes it.  The model draws no random numbers, so the RNG
+    state is not stashed."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(block, cfg, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return block(cfg, *args)
+
+
 def _encode(params, cfg, frames):
     """The audio encoder over ``frames`` (B, encoder_len, d): sinusoid
     positions, the non-causal layers, then ``enc_ln``."""
     h = frames + L.sinusoid_pos_emb(frames.shape[1], cfg.d_model,
                                     device=frames.device).to(frames.dtype)
     for ep in params["encoder"]:
-        h = ep(cfg, h)
+        h = _remat(ep, cfg, h)
     return L.rms_norm(h, params["enc_ln"], cfg.norm_eps)
 
 
@@ -453,7 +474,7 @@ def forward(params, cfg, batch, *, want_cache=False, return_hidden=False):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     prefix = {}
     for name, bp in (params.get("prefix") or {}).items():
-        x, prefix[name], _ = bp(cfg, x, None, want_cache)
+        x, prefix[name], _ = _remat(bp, cfg, x, None, want_cache)
     shared = params.get("shared")
     memory = _encode(params, cfg, batch["frames"]) \
         if cfg.family == "audio" else None
@@ -462,13 +483,48 @@ def forward(params, cfg, batch, *, want_cache=False, return_hidden=False):
         if memory is not None:
             shared = A.cross_memory(bp["cross"], memory, cfg)
             cross.append(shared)
-        x, c, a = bp(cfg, x, shared, want_cache)
+        x, c, a = _remat(bp, cfg, x, shared, want_cache)
         aux = aux + a
         caches.append(c)
     x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
     logits = x if return_hidden else L.unembed(params["embed"], x)
     return logits, aux, (_cache_tree(cfg, prefix, caches, cross)
                          if want_cache else None)
+
+
+def loss_fn(params, cfg, batch):
+    """(loss, {"ce", "aux"[, "mtp"]}): next-token CE of the hidden states
+    at positions :-1 against ``labels[:, 1:]`` (masked by ``mask[:, 1:]``
+    where the batch has one), through the fused unembed + CE, plus
+    ``router_aux_coef`` x the MoE layers' aux loss and, for DeepSeek-V3,
+    0.3 x the MTP head's loss."""
+    x, aux, _ = forward(params, cfg, batch, return_hidden=True)
+    mask = batch.get("mask")
+    ce = L.softmax_xent_fused(params["embed"], x[:, :-1],
+                              batch["labels"][:, 1:],
+                              None if mask is None else mask[:, 1:])
+    loss = ce + cfg.router_aux_coef * aux
+    metrics = {"ce": ce, "aux": aux}
+    if cfg.mtp:
+        mtp_loss = _mtp_loss(params, cfg, batch)
+        loss = loss + 0.3 * mtp_loss
+        metrics["mtp"] = mtp_loss
+    return loss, metrics
+
+
+def _mtp_loss(params, cfg, batch):
+    """DeepSeek-V3 multi-token prediction: the depth-1 extra head, its
+    input the embeddings of tokens t and t + 1 side by side, its target
+    ``labels[:, 2:]``."""
+    mp = params["mtp"]
+    x = L.embed(params["embed"], batch["tokens"], cfg.d_model)
+    h = torch.cat([x[:, :-1], x[:, 1:]], dim=-1) @ mp["proj"]
+    y, _ = A.mla_fwd(mp["attn"], h, cfg)
+    h = h + y
+    h = h + _mlp_fwd(mp["mlp"], h, cfg)
+    h = L.rms_norm(h, mp["ln"], cfg.norm_eps)
+    return L.softmax_xent_fused(params["embed"], h[:, :-1],
+                                batch["labels"][:, 2:])
 
 
 def prefill(params, cfg, batch):

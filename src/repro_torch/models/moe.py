@@ -22,6 +22,12 @@ summed in the order of its top-k; a dropped assignment adds zero), not a
 scatter-add, so a run on the card is deterministic; with k = 2 the sum
 rounds as the reference's scatter-add does.
 
+Under autograd (training) the slot weights scale the expert outputs out
+of place and the int8 path joins its chunks instead of writing them into
+one preallocated buffer; with nothing recorded both stay in place, as
+serving wants (the same values either way).  int8 expert matrices take
+no gradient.
+
 Not ported: the mesh code (``_moe_decode_ep``, ``_resolve_axes``,
 ``_linear_index`` and the ``shard_map`` expert-parallel branch), which
 ports with the mesh tooling (ROADMAP Queue 1 item 11).
@@ -105,14 +111,22 @@ def _experts(pk, w_gate, w_up, w_down, act, scales=None):
         h = f(torch.bmm(pk, w_gate)) * torch.bmm(pk, w_up)
         return torch.bmm(h, w_down)
     sg, su, sd = (s[:, None, :].to(pk.dtype) for s in scales)
-    out = torch.empty(pk.shape, dtype=pk.dtype, device=pk.device)
     n = _cast_chunk(w_gate, pk.dtype)
+    # one preallocated output where nothing is recorded; under autograd the
+    # chunks are joined, so no slice write hides a version from it
+    out = None if torch.is_grad_enabled() else torch.empty(
+        pk.shape, dtype=pk.dtype, device=pk.device)
+    chunks = []
     for e in range(0, pk.shape[0], n):
         sl = slice(e, e + n)
         g = torch.bmm(pk[sl], w_gate[sl].to(pk.dtype)) * sg[sl]
         u = torch.bmm(pk[sl], w_up[sl].to(pk.dtype)) * su[sl]
-        out[sl] = torch.bmm(f(g) * u, w_down[sl].to(pk.dtype)) * sd[sl]
-    return out
+        y = torch.bmm(f(g) * u, w_down[sl].to(pk.dtype)) * sd[sl]
+        if out is None:
+            chunks.append(y)
+        else:
+            out[sl] = y
+    return torch.cat(chunks) if out is None else out
 
 
 def _expert_compute(xf, topw, topi, w_gate, w_up, w_down, act, cf=1.25,
@@ -140,7 +154,9 @@ def _expert_compute(xf, topw, topi, w_gate, w_up, w_down, act, cf=1.25,
     xpad = torch.cat([xf, xf.new_zeros((1, d))])
     o = _experts(xpad[src_tok].reshape(E, C, d), w_gate, w_up, w_down, act,
                  scales).reshape(E * C, d)
-    o.mul_(slot_w[:, None].to(o.dtype))
+    w = slot_w[:, None].to(o.dtype)
+    # in place where nothing is recorded; autograd keeps the unscaled o
+    o = o * w if torch.is_grad_enabled() else o.mul_(w)
     # assignment -> its slot, and whether it kept one (a dropped one reads
     # its expert's last slot, times 0)
     rank = torch.arange(T * k, device=dev) - starts[le_s]

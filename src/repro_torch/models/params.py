@@ -11,7 +11,8 @@ reference's own weights across where they must be equal.
 
 ``Params`` turns such a tree of tensors into ``nn.Module``s that keep the
 reference's names: ``p["wq"]`` reads the parameter ``wq``, ``p["blocks"]``
-an ``nn.ModuleList``.
+an ``nn.ModuleList``.  Its parameters are frozen, as serving wants them;
+``trainable`` turns gradients on for training.
 """
 from __future__ import annotations
 
@@ -90,3 +91,12 @@ class Params(nn.Module):
 
     def get(self, name: str, default=None):
         return self[name] if name in self else default
+
+
+def trainable(module: nn.Module) -> nn.Module:
+    """``module`` with ``requires_grad`` on for every floating-point
+    parameter; int8 leaves (int8 experts) stay frozen."""
+    for p in module.parameters():
+        if p.dtype.is_floating_point:
+            p.requires_grad_()
+    return module
