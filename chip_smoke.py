@@ -86,10 +86,10 @@ Phases, each printing its lines; any failure exits non-zero:
 10. LM main path: ``run_lm`` serving full-width ``zamba2-2.7b`` and then
    ``tinyllama-1.1b`` (weights drawn on the card from a seeded generator),
    batch 8, prompt 2048, 32 generated tokens, in bf16 and then in fp32;
-   then in bf16 ``deepseek-v2-236b`` (14 layers) and ``deepseek-v3-671b``
+   then in bf16 ``deepseek-v2-236b`` (4 layers) and ``deepseek-v3-671b``
    (6 layers), both with int8 experts quantised from bf16 draws, the whole
-   ``gemma3-12b`` and ``codeqwen1.5-7b``, ``starcoder2-15b`` and
-   ``internvl2-26b`` (with 256 random patches) cut to 20 layers each,
+   ``gemma3-12b``; ``codeqwen1.5-7b``, ``starcoder2-15b`` and
+   ``internvl2-26b`` (with 256 random patches) cut to 20 layers each;
    ``whisper-base`` (1500 random frames, prompt 416, so 448 positions)
    and ``xlstm-1.3b`` (``LM_CUTS``, ``LM_PROMPTS``); each run must launch
    the SSD kernel once per Mamba-2 layer and the flash kernel once per
@@ -139,7 +139,34 @@ Phases, each printing its lines; any failure exits non-zero:
    step against its own wall time (the device's activity alone traced,
    the least the profiler adds on the host), and the device ms of the
    flash and SSD forwards, of the plain backwards and of the rest in
-   the next (the host's activity traced too).
+   the next (the host's activity traced too);
+13. the mesh (run after phase 6, before the serving phases): (a) the flash
+   kernel at each serving shape's share of one rank of the production
+   mesh's model axis (8): H / 8 query heads and the kv heads they read,
+   and the SSD at zamba2's 80 / 8 = 10 heads, in both dtypes, held
+   against the plain versions with a planted fault rejected, and timed
+   ("local" rows); (b) on a world-1 NCCL group and a (data=1, model=1)
+   ``DeviceMesh``, the sharded steps beside the unsharded path on the
+   same seeded weights, through the steps the dry run traces
+   (``steps.step_fn_for``'s prefill and serve steps, ``make_train_step``):
+   ``tinyllama-1.1b`` bf16 prefill under ``tp`` and 4 greedy serve steps
+   under ``decode``, ``zamba2-2.7b`` bf16 prefill under ``tp``,
+   ``deepseek-v2-236b`` at 2 layers (1 dense + 1 MoE, int8 experts) bf16
+   prefill and serve steps under ``decode_moe``, and one fp32
+   ``tinyllama-1.1b`` train step under ``fsdp`` at 4 x 2048 in 2
+   microbatches (then a second, timed): the prefill's logits, every
+   step's token, the cache after the steps, the loss, the grad norm and
+   every updated parameter bit-identical (a planted fault rejected); each
+   sharded and unsharded run counted alone (launch counts set to 0 just
+   before it), each count equal to the launches a profiler trace of that
+   run saw and each sharded run's to its unsharded run's; both wall
+   times printed (their difference is DTensor's host cost).
+Every profiler trace that times kernels or counts their launches is
+bracketed by two marker kernels and counts only the launches between them;
+a timing takes two whole traces in a row that hold the same launches and
+agree within 1.25x in device time, a launch count a whole trace that saw
+what the wrappers counted; up to eight tries (the host idle around the
+calls from the second on), then the run fails.
 Each run of a main path sets the kernels' launch counts to 0 just before
 it and reads them just after.
 
@@ -181,19 +208,22 @@ LM_ARCHS = ("zamba2-2.7b", "tinyllama-1.1b")
 # served in bf16 only, each cut where 80 GB forces it: as many layers as
 # leave the fp32 reference run of the same weights about 8 GiB under the
 # card's 79.18 GiB (PERF.md §4 sizes each cut from the bytes a layer added
-# to that run's peak on the card).  DeepSeek-V2 to 14 layers (1 dense + 13
-# MoE) and DeepSeek-V3 to 6 (3 dense + 3 MoE), both with int8 experts
-# quantised from bf16 draws.  starcoder2-15b (40 layers) and internvl2-26b
-# (48; its fp32 copy alone is 74 GiB) to 20 each, for the script's time:
-# with phase 12 it reached 1099 s of its 1200 (PERF.md §4); their layers
-# are the dense GQA layers codeqwen runs whole.  The others whole
+# to that run's peak on the card).  DeepSeek-V3 to 6 (3 dense + 3 MoE),
+# with int8 experts quantised from bf16 draws.  DeepSeek-V2 (14 layers fit)
+# to 4 (1 dense + 3 MoE, int8 experts), codeqwen1.5-7b (32 layers),
+# starcoder2-15b (40) and internvl2-26b (48; its fp32 copy alone is 74 GiB)
+# to 20 each, for the script's time: with phase 12 it reached 1099 s of
+# its 1200, and phase 13 (the mesh) adds 25-40 s (PERF.md §4); their
+# layers are the ones the whole runs hold (gemma3's and tinyllama's dense
+# GQA layers, DeepSeek-V3's MoE layers).  The others whole
 LM_BF16_ARCHS = ("deepseek-v2-236b", "deepseek-v3-671b", "gemma3-12b",
                  "codeqwen1.5-7b", "starcoder2-15b", "internvl2-26b",
                  "whisper-base", "xlstm-1.3b")
-LM_CUTS = {"deepseek-v2-236b": {"n_layers": 14,
+LM_CUTS = {"deepseek-v2-236b": {"n_layers": 4,
                                 "expert_weights_dtype": "int8"},
            "deepseek-v3-671b": {"n_layers": 6,
                                 "expert_weights_dtype": "int8"},
+           "codeqwen1.5-7b": {"n_layers": 20},
            "starcoder2-15b": {"n_layers": 20},
            "internvl2-26b": {"n_layers": 20}}
 LM_BATCH, LM_PROMPT, LM_GEN = 8, 2048, 32
@@ -333,45 +363,85 @@ def compare(torch, gm, dtype, Q, N, k, gen, D=128, misalign=False,
     return err
 
 
-def _per_kernel_us(prof, n):
-    """{kernel name: device microseconds a call} in a profile of ``n``
-    calls of one function: each kernel's mean time times its launches a
-    call (its count over ``n``, rounded up: every call launches every
-    kernel the trace holds), so launches the trace lost do not lower the
-    time of a call."""
+# A device-only profiler trace on the H100 can come back without its
+# kernels: empty, missing launches at its ends or between them, or holding
+# launches of an earlier trace.  So every trace that times kernels or
+# counts their launches is bracketed by two marker kernels and counts only
+# the launches between them; a trace that lacks a marker is taken again,
+# with the host idle around the calls from the second try on; a timing
+# takes two whole traces in a row that hold the same launches of every
+# kernel, their device times within TRACE_AGREE; none so in TRACE_TRIES
+# raises.
+MARK = "spin_kernel"        # ``torch.cuda._sleep``'s kernel
+MARK_CYCLES = 1000
+TRACE_TRIES = 8
+TRACE_PAD_S = 0.05
+TRACE_AGREE = 1.25
+
+
+def marked_trace(torch, run, pad):
+    """(``run()``'s result, [(kernel name, device ns)] of the launches
+    between the two markers around it, or where the trace does not hold
+    exactly two markers a note of what it holds), the host idle ``pad``
+    seconds before and after."""
     from torch.autograd import DeviceType
-    out = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            us = getattr(e, "self_device_time_total", None) or \
-                getattr(e, "self_cuda_time_total", 0.0)
-            out[e.key] = out.get(e.key, 0.0) + \
-                us / e.count * math.ceil(e.count / n)
-    return out
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(pad)
+        torch.cuda._sleep(MARK_CYCLES)
+        res = run()
+        torch.cuda._sleep(MARK_CYCLES)
+        torch.cuda.synchronize()
+        time.sleep(pad)
+    events = [(e.name(), e.start_ns(), e.duration_ns())
+              for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA]
+    marks = sorted(t for name, t, _ in events if MARK in name)
+    if len(marks) != 2:
+        return res, (f"{len(marks)} markers and {len(events) - len(marks)} "
+                     "other launches")
+    return res, [(name, ns) for name, t, ns in events
+                 if marks[0] < t < marks[1] and MARK not in name]
 
 
-def _kernel_us(prof, n):
-    """Device microseconds a call, all kernels (``_per_kernel_us``)."""
-    return sum(_per_kernel_us(prof, n).values())
+def device_calls(torch, run, n, what):
+    """{kernel name: (device us, launches) a call} over ``run()``'s ``n``
+    calls, from the later of the last two whole marked traces, once they
+    agree (see above)."""
+    prev = None
+    for attempt in range(TRACE_TRIES):
+        _, inside = marked_trace(torch, run, TRACE_PAD_S if attempt else 0.0)
+        if isinstance(inside, str):
+            print(f"[trace] {what}: try {attempt + 1} holds {inside}")
+            continue
+        total, count = {}, {}
+        for name, ns in inside:
+            total[name] = total.get(name, 0.0) + ns / 1e3
+            count[name] = count.get(name, 0) + 1
+        us = sum(total.values())
+        if prev is not None and count and count == prev[1] and \
+                max(us, prev[0]) <= TRACE_AGREE * min(us, prev[0]):
+            return {k: (total[k] / n, count[k] / n) for k in total}
+        if prev is not None:
+            print(f"[trace] {what}: try {attempt + 1} holds "
+                  f"{sum(count.values())} launches in {us:.1f} us, the one "
+                  f"before {sum(prev[1].values())} in {prev[0]:.1f}")
+        prev = (us, count)
+    raise AssertionError(f"{what}: no two whole profiler traces in a row "
+                         f"that agree in {TRACE_TRIES} tries")
 
 
-def timed(torch, fn, galleries, iters=10):
+def timed(torch, fn, galleries, iters=10, what="timed"):
     """(device ms, call ms) of one call of ``fn(*args)``, ``args`` taken in
     turn from ``galleries``.
 
     The gallery-match calls rotate over four galleries of one shard's size,
     as the serving path's four shards do, so no call finds its gallery in
-    the 50 MB L2 cache.  Device ms is the kernels' own time, summed from a
-    ``torch.profiler`` trace; call ms is CUDA events around back-to-back
-    calls, so it also holds any time the card waits on the host.  A trace
-    can come back short (seen on the H100: every window of five 5 ms
-    launches lost one, which read 20 % low when the time was divided by
-    the calls; once a trace of 40 gallery-match calls read no time at
-    all when counts were rounded to the nearest), so each kernel's time is
-    its mean launch times its launches a call (``_kernel_us``), and a
-    trace that holds no device time is taken again, up to three times."""
-    from torch.profiler import ProfilerActivity, profile
-
+    the 50 MB L2 cache.  Device ms is the kernels' own time over the
+    calls, summed from the second of two whole marked profiler traces
+    that agree (``device_calls``); call ms is CUDA events around back-to-back calls, so it also holds any
+    time the card waits on the host."""
     def rounds(n):
         for _ in range(n):
             for args in galleries:
@@ -387,16 +457,8 @@ def timed(torch, fn, galleries, iters=10):
     e1.synchronize()
     n = iters * len(galleries)
     call_ms = e0.elapsed_time(e1) / n
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            rounds(iters)
-            torch.cuda.synchronize()
-        dev_us = _kernel_us(prof, n)
-        if dev_us > 0.0:
-            break
-    else:
-        raise AssertionError("the profiler saw no device time")
-    return dev_us / 1e3, call_ms
+    per = device_calls(torch, lambda: rounds(iters), n, what)
+    return sum(us for us, _ in per.values()) / 1e3, call_ms
 
 
 def bound(dtype, Q, N, D, k):
@@ -736,28 +798,19 @@ def tie_cells(torch, gm, dtype, gen, D=128):
 
 def kernels_per_call(torch, fn, calls):
     """{kernel name: launches a call} of ``fn(*args)`` over ``calls``, from
-    a profiler trace of one round (each kernel's count over the calls,
-    rounded up, as ``_per_kernel_us`` counts them); a trace that holds no
-    kernel is taken again, up to three times, as in ``timed``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    whole marked traces of one round (``device_calls``)."""
     for args in calls:
         fn(*args)
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for args in calls:
-                fn(*args)
-            torch.cuda.synchronize()
-        out = {}
-        for e in prof.key_averages():
-            if e.device_type == DeviceType.CUDA:
-                name = re.sub(r"^void |\(anonymous namespace\)::|[<(].*$",
-                              "", e.key)
-                out[name] = out.get(name, 0) + math.ceil(e.count / len(calls))
-        if out:
-            return out
-    raise AssertionError("the profiler saw no kernel")
+
+    def run():
+        for args in calls:
+            fn(*args)
+    out = {}
+    for key, (_, n) in device_calls(torch, run, len(calls),
+                                    "kernels a call").items():
+        name = re.sub(r"^void |\(anonymous namespace\)::|[<(].*$", "", key)
+        out[name] = out.get(name, 0) + n
+    return out
 
 
 def rescore_edges(torch, gm, A, dtype, gen, D=128):
@@ -1460,16 +1513,14 @@ def planted_ssd(t):
 
 def kernel_split(torch, fn, n=3):
     """Device ms per call of ``fn()`` by kernel name, without its template
-    arguments (a profiler trace of ``n`` calls)."""
-    from torch.profiler import ProfilerActivity, profile
+    arguments (whole marked traces of ``n`` calls, ``device_calls``)."""
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(n):
             fn()
-        torch.cuda.synchronize()
     out = {}
-    for key, us in _per_kernel_us(prof, n).items():
+    for key, (us, _) in device_calls(torch, run, n, "kernel split").items():
         name = re.sub(r"^void |\(anonymous namespace\)::|[<(].*$", "", key)
         out[name] = out.get(name, 0.0) + us / 1e3
     return out
@@ -2542,6 +2593,417 @@ def phase_train(torch, FA, SSD):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the mesh
+# ---------------------------------------------------------------------------
+# the production mesh's model axis: (a) runs the kernels at the shapes one
+# of its ranks gets, H / 8 query heads and the kv heads they read, as the
+# dry run (launch/dryrun.py) records them for those cells
+MESH_MODEL = 8
+# (b) the sharded steps on a world-1 NCCL group and a (1, 1) mesh, each held
+# against the unsharded path on the same weights: (arch, dtype, config
+# replacements, prefill rules, decode rules or None); then one train step
+MESH_SERVE = [("tinyllama-1.1b", "bf16", {}, "tp", "decode"),
+              ("zamba2-2.7b", "bf16", {}, "tp", None),
+              ("deepseek-v2-236b", "bf16",
+               {"n_layers": 2, "expert_weights_dtype": "int8"},
+               "decode_moe", "decode_moe")]
+MESH_DECODE = 4                       # decode steps after the prefill
+MESH_TRAIN = ("tinyllama-1.1b", 4, 2048, "fsdp")   # fp32, 2 microbatches
+FLASH_KERNELS = ("flash_bf16_kernel", "flash_f32_kernel")
+SSD_CALL_KERNELS = ("ssd_kernel", "ssd_chunk_scan")   # one of them a call
+
+
+def local_flash_shape(shape):
+    """One model-axis rank's share of a flash call: H / MESH_MODEL query
+    heads and the kv heads they read (all of its own where the kv heads
+    split too, else the group its query heads fall in)."""
+    B, H, Kh, Sq, Sk, D, Dv, causal, window = shape
+    Hl = H // MESH_MODEL
+    if Kh % MESH_MODEL == 0:
+        Khl = Kh // MESH_MODEL
+    else:
+        G = H // Kh
+        Khl = max(1, Hl // G)
+    return (B, Hl, Khl, Sq, Sk, D, Dv, causal, window)
+
+
+def phase_mesh_kernels(torch, FA, SSD):
+    """Phase 13 (a): the flash kernel at each serving shape's local share
+    and the SSD at zamba2's 80 / 8 = 10 heads, both dtypes, held against
+    the plain versions (with a planted fault rejected) and timed."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=DEV).manual_seed(13)
+    out = {}
+    for dtype in LM_DTYPES:
+        for name, full in FLASH_SERVE.items():
+            shape = local_flash_shape(full)
+            causal, window = shape[7], shape[8]
+            q, k, v = flash_inputs(torch, shape, dtype, gen, True)
+            o = FA.flash_attention_cuda(q, k, v, causal=causal, window=window)
+            p = FA.flash_attention_plain(q, k, v, causal=causal,
+                                         window=window)
+            e = flash_err(torch, o, p, dtype)
+            e_bad = flash_err(torch, planted(p.clone()), p, dtype)
+            if not e <= FLASH_TOL[dtype] < e_bad:
+                raise AssertionError(f"mesh flash {dtype} {name} {shape}: "
+                                     f"error {e}, planted {e_bad} (tolerance "
+                                     f"{FLASH_TOL[dtype]})")
+            abs_err = float((o.float() - p.float()).abs().max())
+            args = [(q, k, v)]
+            lib_mask = dict(attn_mask=FA._masks(
+                shape[3], shape[4], True, window, DEV)) if window else \
+                dict(is_causal=causal)
+            what = f"local flash {dtype} {name}"
+            kms, _ = timed(torch, lambda q, k, v: FA.flash_attention_cuda(
+                q, k, v, causal=causal, window=window), args, iters=3,
+                what=what)
+            pms, _ = timed(torch, lambda q, k, v: FA.flash_attention_plain(
+                q, k, v, causal=causal, window=window), args, iters=2,
+                what=f"{what} plain")
+            lms, _ = timed(torch, lambda q, k, v:
+                           F.scaled_dot_product_attention(
+                               q, k, v, enable_gqa=shape[1] != shape[2],
+                               **lib_mask), args, iters=3,
+                           what=f"{what} SDPA")
+            bms, by = work_bound(dtype, *flash_work(shape, dtype))
+            out[("flash", dtype, name)] = dict(
+                shape=shape, err=abs_err, ms=kms, plain_ms=pms,
+                library_ms=lms, bound_ms=bms, bound_by=by)
+            print(f"[mesh-local] flash {dtype} {name} {shape[:7]}: error "
+                  f"{e:.3g} (planted {e_bad:.3g}) kernel_ms={kms:.4f} "
+                  f"plain_ms={pms:.4f} library_ms={lms:.4f} "
+                  f"bound_ms={bms:.4f} ({by}), {bms / kms:.1%} of it")
+            del q, k, v, o, p, args
+        Bt, L, H, P, N, c = SSD_SERVE
+        shape = (Bt, L, H // MESH_MODEL, P, N, c)
+        x, dt, A, Bm, Cm = ssd_inputs(torch, shape, dtype, gen, True)
+        got = ssd_outputs(*SSD.mamba2_ssd_cuda(x, dt, A, Bm, Cm, chunk=c,
+                                               stages=True))
+        want = dict(ssd_outputs(*SSD.mamba2_ssd_plain(x, dt, A, Bm, Cm,
+                                                      chunk=c, stages=True)))
+        err = 0.0
+        for name, g in got:
+            if not ssd_close(torch, g, want[name]) or \
+                    ssd_close(torch, planted_ssd(g.clone()), want[name]):
+                raise AssertionError(f"mesh ssd {dtype} {shape}: {name} "
+                                     "differs, or a planted fault passes")
+            err = max(err, float((g - want[name]).abs().max()))
+        args = [(x, dt, A, Bm, Cm)]
+        kms, _ = timed(torch, lambda *a: SSD.mamba2_ssd_cuda(*a), args,
+                       iters=3, what=f"local ssd {dtype}")
+        pms, _ = timed(torch, lambda *a: SSD.mamba2_ssd_plain(*a, chunk=c),
+                       args, iters=2, what=f"local ssd {dtype} plain")
+        bms, by = work_bound("tf32", *ssd_work(shape, dtype))
+        out[("ssd", dtype)] = dict(shape=shape, err=err, ms=kms,
+                                   plain_ms=pms, library_ms=None,
+                                   bound_ms=bms, bound_by=by,
+                                   path=SSD.last_plan)
+        print(f"[mesh-local] ssd {dtype} {shape}: {SSD.last_plan} path, "
+              f"max abs error {err:.3g}; kernel_ms={kms:.4f} "
+              f"plain_ms={pms:.4f} bound_ms={bms:.4f} ({by}), "
+              f"{bms / kms:.1%} of it")
+        del x, dt, A, Bm, Cm, got, want, args
+    return out
+
+
+def kernel_launches(torch, FA, SSD, fn, what, tries=TRACE_TRIES):
+    """(``fn()``'s result, {"flash": n, "ssd": n}): the kernels' launches in
+    one run of ``fn``, from their wrappers' counts, set to 0 just before it
+    and read just after, held equal to the launches a whole marked
+    profiler trace of the same run saw (an SSD call is one ``ssd_kernel``
+    launch on the general path, one ``ssd_chunk_scan`` on the staged).
+    A trace that lacks a marker or disagrees is taken again on ``fn`` run
+    again, up to ``tries`` times: only a run that gives the same result
+    again (a prefill; a serve step, which writes the same cache slot with
+    the same values) may have more than one."""
+    for attempt in range(tries):
+        FA.launches = SSD.launches = 0
+        res, inside = marked_trace(torch, fn, TRACE_PAD_S if attempt else 0.0)
+        n = {"flash": FA.launches, "ssd": SSD.launches}
+        if not isinstance(inside, str):
+            seen = {"flash": sum(any(t in name for t in FLASH_KERNELS)
+                                 for name, _ in inside),
+                    "ssd": sum(any(t in name for t in SSD_CALL_KERNELS)
+                               for name, _ in inside)}
+            if n == seen:
+                return res, n
+        print(f"[trace] {what}: try {attempt + 1}: the wrappers counted {n}"
+              f", the trace holds {inside if isinstance(inside, str) else seen}")
+    raise AssertionError(f"mesh: {what}: no trace in {tries} tries saw "
+                         "the launches the wrappers counted")
+
+
+def wall_ms(torch, fn):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, (time.perf_counter() - t) * 1e3
+
+
+def held_equal(torch, what, got, want):
+    """Bit-identical tensors; the check must also reject ``want`` with a
+    planted fault on its later half (PLANT, or + 1 on integers)."""
+    if got.shape != want.shape or not torch.equal(got, want):
+        d = float((got.float() - want.float()).abs().max()) \
+            if got.shape == want.shape else math.inf
+        raise AssertionError(f"mesh: {what} differs from the unsharded "
+                             f"path's (max abs {d:.3g}); world 1 must be "
+                             "bit-identical")
+    bad = want.clone()
+    flat = bad.view(-1)
+    if bad.is_floating_point():
+        flat[flat.numel() // 2:] *= PLANT
+    else:
+        flat[flat.numel() // 2:] += 1
+    if torch.equal(got, bad):
+        raise AssertionError(f"mesh: a planted fault in {what} passes")
+
+
+def tensor_leaves(tree, prefix=""):
+    """[(path, tensor)] of a tree of dicts, lists and tensors."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items()
+                for x in tensor_leaves(v, f"{prefix}.{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in tensor_leaves(v, f"{prefix}.{i}")]
+    return [(prefix, tree)] if hasattr(tree, "shape") else []
+
+
+def serve_steps(st, cb, cfg, T):
+    """The dry run's prefill and serve steps (``steps.step_fn_for``) at the
+    phase's batch, for a prompt of LM_PROMPT and a cache of ``T``."""
+    prefill, _, _ = st.step_fn_for(
+        cfg, cb.ShapeSpec("mesh_prefill", LM_PROMPT, LM_BATCH, "prefill"),
+        None, 1)
+    step, _, _ = st.step_fn_for(
+        cfg, cb.ShapeSpec("mesh_decode", T, LM_BATCH, "decode"), None, 1)
+    return prefill, step
+
+
+def serve_run(torch, FA, SSD, shd, mdl, serve, sp, cfg, params, tokens,
+              tdt, mesh, rules):
+    """``tokens`` served through the dry run's steps, unsharded where
+    ``mesh`` is None, else under ``rules`` (prefill rules, decode rules or
+    None) on ``mesh``: the prefill (its launches counted, then run again
+    for its wall time) and MESH_DECODE greedy serve steps (each counted,
+    its wall timed inside the traced run).  Returns the prefill's logits,
+    each step's token and the cache at the end (full tensors), the
+    launches of each counted run and the walls."""
+    from repro_torch.configs import base as cb
+    from repro_torch.launch import steps as st
+    prefill_rules, decode_rules = rules
+    T = LM_PROMPT + MESH_DECODE
+    prefill, step = serve_steps(st, cb, cfg, T)
+    side = "unsharded" if mesh is None else "sharded"
+
+    def under(r):
+        return contextlib.nullcontext() if mesh is None else \
+            shd.use_rules(r, mesh)
+
+    def put(x, r):
+        return x if mesh is None else \
+            shd.to_dtensor(x, ("batch", "seq"), mesh, shd.RULE_SETS[r])
+
+    out = {"launches": [], "steps_ms": [], "tokens": []}
+    with torch.no_grad():
+        with under(prefill_rules):
+            batch = {"tokens": put(tokens, prefill_rules)}
+            (logits, cache), n = kernel_launches(
+                torch, FA, SSD, lambda: prefill(params, batch),
+                f"{cfg.name} {side} prefill")
+            out["launches"].append(n)
+            _, out["prefill_ms"] = wall_ms(torch,
+                                           lambda: prefill(params, batch))
+        out["logits"] = shd.full_tensor(logits)
+        if decode_rules is None:
+            return out
+        full = serve._tree_map2(serve._put,
+                                sp.init_cache(cfg, LM_BATCH, T, dtype=tdt,
+                                              device=DEV),
+                                shd.full_tree(cache))
+        del cache
+        tok = torch.argmax(out["logits"], -1).to(torch.int32)[:, None]
+        with under(decode_rules):
+            cache = full if mesh is None else shd.distribute_tree(
+                full, mdl.cache_specs(cfg, LM_BATCH, T), mesh,
+                decode_rules)
+            del full
+            for i in range(MESH_DECODE):
+                t = put(tok, decode_rules)
+                ((nxt, cache), ms), n = kernel_launches(
+                    torch, FA, SSD, lambda: wall_ms(torch, lambda: step(
+                        params, t, LM_PROMPT + i, cache)),
+                    f"{cfg.name} {side} serve step {i}")
+                out["launches"].append(n)
+                out["steps_ms"].append(ms)
+                tok = shd.full_tensor(nxt)
+                out["tokens"].append(tok)
+        out["cache"] = shd.full_tree(cache)
+    return out
+
+
+def mesh_serve(torch, FA, SSD, shd, mdl, serve, sp, mesh, arch, dtype, cuts,
+               prefill_rules, decode_rules):
+    """One model served through the dry run's steps, unsharded and then
+    sharded on the same weights: the prefill's logits, every step's token
+    and the cache at the end held bit-identical, and each counted run's
+    kernel launches equal.  Returns the sharded runs' launches."""
+    from repro_torch.configs import base as cb
+    cfg = cb.get(arch).replace(**cuts)
+    tdt = getattr(torch, TORCH_DTYPE[dtype])
+    gen = torch.Generator(device=DEV).manual_seed(1300)
+    params = lm_model(mdl, cfg, tdt, gen)
+    tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                           generator=gen, device=DEV, dtype=torch.int32)
+    rules = (prefill_rules, decode_rules)
+    ref = serve_run(torch, FA, SSD, shd, mdl, serve, sp, cfg, params, tokens,
+                    tdt, None, rules)
+    shd.distribute_params(params, mdl.param_specs(cfg), mesh, prefill_rules)
+    got = serve_run(torch, FA, SSD, shd, mdl, serve, sp, cfg, params, tokens,
+                    tdt, mesh, rules)
+    held_equal(torch, f"{arch} prefill logits", got["logits"],
+               ref["logits"])
+    for i, (g, w) in enumerate(zip(got["tokens"], ref["tokens"])):
+        held_equal(torch, f"{arch} serve step {i} token", g, w)
+    if decode_rules:
+        want = dict(tensor_leaves(ref["cache"]))
+        for path, g in tensor_leaves(got["cache"]):
+            held_equal(torch, f"{arch} cache{path} after the serve steps",
+                       g, want[path])
+    if got["launches"] != ref["launches"]:
+        raise AssertionError(f"mesh: {arch} sharded runs launched "
+                             f"{got['launches']}, the unsharded "
+                             f"{ref['launches']}")
+    total = {k: sum(n[k] for n in got["launches"]) for k in ("flash", "ssd")}
+    line = (f"[mesh] {arch} {dtype} {lm_cuts_of(cfg, arch)}: prefill "
+            f"({prefill_rules}) logits bit-identical, launches "
+            f"{got['launches'][0]} both; wall ms unsharded "
+            f"{ref['prefill_ms']:.1f}, sharded {got['prefill_ms']:.1f}")
+    if decode_rules:
+        n = max(MESH_DECODE - 1, 1)
+        steps = {k: sum(n[k] for n in got["launches"][1:])
+                 for k in ("flash", "ssd")}
+        line += (f"; {MESH_DECODE} serve steps ({decode_rules}): tokens and "
+                 f"the cache bit-identical, launches {steps} both (each "
+                 f"step's equal); wall ms a step (traced, the "
+                 f"first left out) unsharded "
+                 f"{sum(ref['steps_ms'][1:]) / n:.1f}, sharded "
+                 f"{sum(got['steps_ms'][1:]) / n:.1f}")
+    print(line)
+    del params, ref, got
+    torch.cuda.empty_cache()
+    return total
+
+
+def lm_cuts_of(cfg, arch):
+    from repro_torch.configs import base as cb
+    full = cb.get(arch)
+    cut = [f"{k} {getattr(full, k)} -> {getattr(cfg, k)}"
+           for k in ("n_layers", "expert_weights_dtype")
+           if getattr(full, k) != getattr(cfg, k)]
+    return "(" + (", ".join(cut) or "whole") + ")"
+
+
+def mesh_train(torch, FA, SSD, shd, mdl, mesh):
+    """One fp32 train step under fsdp on the (1, 1) mesh against the
+    unsharded step on the same weights and batch (``make_train_step``, the
+    step ``steps.step_fn_for`` gives a train cell, here at TRAIN_MICRO
+    microbatches: at 4 x 2048 its policy would take one), each counted,
+    then a second for its wall time: loss, grad norm and every parameter
+    after the two bit-identical, the counted steps' kernel launches equal.
+    Returns the sharded step's launches."""
+    from repro_torch.configs import base as cb
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.params import trainable
+    from repro_torch.optim import adamw, constant
+    from repro_torch.optim.optimizers import named_leaves
+    arch, B, S, rules = MESH_TRAIN
+    cfg = cb.get(arch)
+    gen = torch.Generator(device=DEV).manual_seed(1301)
+    batch = {k: torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                              device=DEV, dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    out = {}
+    for name in ("unsharded", "sharded"):
+        lm = trainable(mdl.init(cfg, torch.Generator(device=DEV).manual_seed(
+            0), torch.float32, DEV))
+        opt = adamw(constant(TRAIN_LR), weight_decay=0.01)
+        step = make_train_step(cfg, opt, n_micro=TRAIN_MICRO)
+        if name == "sharded":
+            shd.distribute_params(lm, mdl.param_specs(cfg), mesh, rules)
+            b = {k: shd.to_dtensor(v, ("batch", "seq"), mesh,
+                                   shd.RULE_SETS[rules])
+                 for k, v in batch.items()}
+            ctx = shd.use_rules(rules, mesh)
+        else:
+            b, ctx = batch, contextlib.nullcontext()
+        with ctx:
+            state = opt.init(lm)
+            (_, _, met), n = kernel_launches(
+                torch, FA, SSD, lambda: step(lm, state, b, 0),
+                f"{arch} {name} train step", tries=1)
+            _, ms = wall_ms(torch, lambda: step(lm, state, b, 1))
+        out[name] = (met, {k: shd.full_tensor(p.detach()) for k, p in
+                           named_leaves(lm).items()}, n, ms)
+        del lm, state
+        torch.cuda.empty_cache()
+    (m0, p0, n0, ms0), (m1, p1, n1, ms1) = out["unsharded"], out["sharded"]
+    for k in ("loss", "ce", "grad_norm"):
+        held_equal(torch, f"train {k}", m1[k].reshape(1), m0[k].reshape(1))
+    for k in p0:
+        held_equal(torch, f"train parameter {k} after two steps", p1[k],
+                   p0[k])
+    if n1 != n0:
+        raise AssertionError(f"mesh: the sharded train step launched {n1}, "
+                             f"the unsharded {n0}")
+    print(f"[mesh] {arch} fp32 train ({rules}, {B} x {S} in {TRAIN_MICRO} "
+          f"microbatches): loss {float(m0['loss']):.6f}, grad norm and "
+          f"every parameter after two steps bit-identical, launches {n1} "
+          f"both (the first step); second step wall ms unsharded "
+          f"{ms0:.1f}, sharded {ms1:.1f}")
+    return n1
+
+
+def phase_mesh(torch, FA, SSD, serve):
+    """Phase 13: (a) the kernels at one model-axis rank's shapes; (b) the
+    sharded steps on a world-1 NCCL group, each held bit-identical to the
+    unsharded path.  Returns ((a)'s readings, the kernels' launches in
+    (b)'s sharded runs that were counted, by kernel name: bf16 the
+    serving, fp32 the train step)."""
+    import torch.distributed as dist
+    from repro_torch import sharding as shd
+    from repro_torch.launch import specs as sp
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as mdl
+    t0 = time.perf_counter()
+    local = phase_mesh_kernels(torch, FA, SSD)
+    t_local = time.perf_counter() - t0
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    bf16 = {"flash": 0, "ssd": 0}
+    try:
+        mesh = make_host_mesh("cuda")
+        for arch, dtype, cuts, pr, dr in MESH_SERVE:
+            n = mesh_serve(torch, FA, SSD, shd, mdl, serve, sp, mesh, arch,
+                           dtype, cuts, pr, dr)
+            for k in bf16:
+                bf16[k] += n[k]
+        fp32 = mesh_train(torch, FA, SSD, shd, mdl, mesh)
+    finally:
+        dist.destroy_process_group()
+    out = {}
+    for dt, n in (("bf16", bf16), ("fp32", fp32)):
+        out[f"flash_attention[{dt}]"] = n["flash"]
+        out[f"mamba2_ssd[{dt}]"] = n["ssd"]
+    print(f"[time] phase 13 (mesh) took {time.perf_counter() - t0:.1f} s "
+          f"((a) {t_local:.1f} s); the script "
+          f"{time.perf_counter() - T_START:.1f} s")
+    return local, out
+
+
 def main() -> int:
     try:
         import torch
@@ -2568,6 +3030,10 @@ def main() -> int:
     r_errs, r_timings = phase_rescore(torch, gm, A)
     f_errs, f_timings = phase_flash(torch, FA)
     s_errs, s_timings = phase_ssd(torch, SSD)
+    # phase 13 right after the kernel phases: after the serving phases 7-9
+    # short profiler traces on the card came back without their markers on
+    # most tries, and after the LM phases empty (PERF.md §6, PR 24)
+    local, mesh_launches = phase_mesh(torch, FA, SSD, serve)
     phase_reference(torch, serve)
     launches = phase_main(torch, gm, serve)
     ann_launches, _ = phase_ann(torch, gm, A, serve)
@@ -2622,12 +3088,25 @@ def main() -> int:
                          + (f" window={window}" if window else ""),
                 "ms": t[0], "plain_ms": t[1], "library_ms": t[2],
                 "bound_ms": t[3], "bound_by": t[4]}
+        for key in FLASH_SERVE:
+            t = local[("flash", dtype, key)]
+            B, H, Kh, Sq, Sk, D, Dv, causal, window = t["shape"]
+            more[f"local_{key}"] = {
+                "shape": f"B={B} H={H} Kh={Kh} Sq={Sq} Sk={Sk} D={D} Dv={Dv}"
+                         f" ({'causal' if causal else 'non-causal'}"
+                         f"{f' window={window}' if window else ''}; one of "
+                         f"{MESH_MODEL} model-axis ranks)",
+                "max_abs_err": t["err"], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "library_ms": t["library_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:95",
-            "launches": lm_launches[name] + train_launches.get(name, 0),
+            "launches": lm_launches[name] + train_launches.get(name, 0)
+            + mesh_launches.get(name, 0),
             "launches_train": train_launches.get(name, 0),
+            "launches_mesh": mesh_launches.get(name, 0),
             "max_abs_err": f_errs[dtype],
             "ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
             "library_ms": lms, "sass": sass,
@@ -2635,12 +3114,21 @@ def main() -> int:
     for dtype in LM_DTYPES:
         name = f"mamba2_ssd[{dtype}]"
         kms, pms, bms, by, fms, path, stages = s_timings[dtype]
+        t = local[("ssd", dtype)]
+        loc = {"local": {
+            "shape": "Bt={} L={} H={} P={} N={} chunk={} (one of {} "
+                     "model-axis ranks)".format(*t["shape"], MESH_MODEL),
+            "max_abs_err": t["err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "library_ms": None, "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "path": t["path"]}}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/mamba2_ssd.cu",
             "replaces": "src/repro/kernels/mamba2_ssd.py:82",
-            "launches": lm_launches[name] + train_launches.get(name, 0),
+            "launches": lm_launches[name] + train_launches.get(name, 0)
+            + mesh_launches.get(name, 0),
             "launches_train": train_launches.get(name, 0),
+            "launches_mesh": mesh_launches.get(name, 0), **loc,
             "max_abs_err": s_errs[dtype],
             "ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
             "fma_bound_ms": fms, "library_ms": None, "path": path,

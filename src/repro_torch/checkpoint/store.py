@@ -13,7 +13,11 @@ mid-save never corrupts the restore point.
 
 The on-disk format is the port's own: the values in one ``torch.save``
 file (``shards.pt``), read back memory-mapped with ``weights_only``; it
-does not read the reference's ``shards.npz``.
+does not read the reference's ``shards.npz``.  A DTensor (a sharded run's
+parameter or state) is saved as its full tensor, gathered from its shards
+(a collective: every rank of its mesh saves), and restored as a plain
+tensor, so one format serves every mesh; ``runtime.elastic``'s
+``recover`` re-distributes it onto the new one.
 """
 from __future__ import annotations
 
@@ -63,6 +67,7 @@ def _unflatten(like, data: dict, prefix: str = ""):
         return QTensor(q=_unflatten(like.q, data, key("q")),
                        scale=_unflatten(like.scale, data, key("scale")),
                        shape=like.shape)
+    # a DTensor ``like`` takes the whole tensor, as a plain one
     return data[prefix].to(device=like.device, dtype=like.dtype, copy=True)
 
 
@@ -80,8 +85,10 @@ class CheckpointStore:
         """Snapshot ``tree`` at ``step``.  Async by default; at most one
         save in flight (joins the previous one first)."""
         self.wait()
-        # host copies under the caller: the values as of this call
-        flat = {k: v.detach().to("cpu", copy=True)
+        # host copies under the caller: the values as of this call (a
+        # DTensor whole)
+        from repro_torch.sharding import full_tensor
+        flat = {k: full_tensor(v.detach()).to("cpu", copy=True)
                 for k, v in _flatten(tree).items()}
         t = threading.Thread(target=self._write, args=(step, flat),
                              daemon=True)

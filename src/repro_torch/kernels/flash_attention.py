@@ -37,6 +37,11 @@ Training differentiates through ``FlashAttention``: the kernel forward,
 and as backward the gradient of the plain version in plain PyTorch
 (``flash_attention_backward``), a sequence (or a block of queries) at a
 time.
+
+The kernel is the operator ``repro_torch::flash_attention``
+(``torch.library.custom_op``, with a fake implementation and a flop
+formula), so a mesh's ``local_map`` and the dry run's meta-tensor trace
+see one operator, not the plain version.
 """
 from __future__ import annotations
 
@@ -47,7 +52,7 @@ import re
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, trace
 
 NEG = -2.0e38
 
@@ -250,21 +255,115 @@ def _flash_cuda(q, k, v, causal: bool, window: int, scale=None):
     return o
 
 
+def _cuda_forward(q, k, v, causal, window):
+    """The kernel on CUDA tensors, head dims it has no instance for padded
+    as above."""
+    D, Dv = q.shape[3], v.shape[3]
+    P, Pv = padded_head_dims(D, Dv)
+    if (P, Pv) == (D, Dv) or P > 256:
+        return _flash_cuda(q, k, v, causal, window)
+    o = _flash_cuda(F.pad(q, (0, P - D)), F.pad(k, (0, P - D)),
+                    F.pad(v, (0, Pv - Dv)), causal, window, scale=D ** -0.5)
+    return o[..., :Dv]
+
+
+# The kernel as the operator ``repro_torch::flash_attention``: its real
+# implementation launches the kernel on CUDA tensors (and raises on any
+# other); its fake one gives the output's shape, so a trace on meta
+# tensors (the mesh dry run) records the operator and never the plain
+# version.  ``repro_torch::flash_attention_backward`` stands for the
+# backward in such a trace: the gradient is autograd's through the plain
+# version, which an operator's body cannot record (it runs below the
+# autograd dispatch key), so on a device ``FlashAttention`` calls
+# ``flash_attention_backward`` itself and the operator's body raises.
+# The operators' namespace is ``repro_torch`` for the package's module; any
+# other copy of the module (``kernel_compare.py`` loads another checkout's
+# beside it) registers its own operators under its module name, so every
+# copy launches through its own.
+_NS = "repro_torch" if __name__ == "repro_torch.kernels.flash_attention" \
+    else re.sub(r"\W", "_", __name__)
+
+
+@torch.library.custom_op(f"{_NS}::flash_attention", mutates_args=())
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool, window: int) -> torch.Tensor:
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    return _cuda_forward(q, k, v, causal, window)
+
+
+@flash_attention_op.register_fake
+def _flash_fake(q, k, v, causal, window):
+    B, H, Sq, _ = q.shape
+    return q.new_empty((B, Sq, H, v.shape[3])).transpose(1, 2)
+
+
+@torch.library.custom_op(f"{_NS}::flash_attention_backward",
+                         mutates_args=())
+def flash_attention_backward_op(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, do: torch.Tensor,
+                                causal: bool, window: int
+                                ) -> tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    raise RuntimeError("flash_attention_backward: the operator is traced, "
+                       "not run; call flash_attention_backward")
+
+
+@flash_attention_backward_op.register_fake
+def _flash_backward_fake(q, k, v, do, causal, window):
+    return tuple(torch.empty_like(t, memory_format=torch.contiguous_format)
+                 for t in (q, k, v))
+
+
+def flash_flops(q_shape, k_shape, v_shape, causal, window) -> float:
+    """Flops of one call: 2 (D + Dv) for each (query, key) pair the masks
+    keep, a head.  The mesh dry run counts the operator by this."""
+    B, H, Sq, D = q_shape
+    Sk, Dv = k_shape[2], v_shape[3]
+    return 2.0 * B * H * kept_pairs(Sq, Sk, causal, window) * (D + Dv)
+
+
+def kept_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs a head's masks keep (left-aligned): query i sees
+    keys j <= i, and with a window i - j < window."""
+    if not causal:
+        return Sq * Sk
+    W = window if 0 < window else Sk
+    # query i keeps min(i + 1, W, Sk) keys
+    n = 0
+    top = min(Sq, Sk, W)          # rows below ``top`` keep i + 1
+    n += top * (top + 1) // 2
+    n += (Sq - top) * min(W, Sk)
+    return n
+
+
+def _register_flops():
+    from torch.utils.flop_counter import flop_registry, register_flop_formula
+    ops = getattr(torch.ops, _NS)
+    if ops.flash_attention in flop_registry:
+        return
+
+    @register_flop_formula(ops.flash_attention)
+    def _fwd(q, k, v, causal, window, *args, out_shape=None, **kw):
+        return int(flash_flops(q, k, v, causal, window))
+
+    @register_flop_formula(ops.flash_attention_backward)
+    def _bwd(q, k, v, do, causal, window, *args, out_shape=None, **kw):
+        # recompute the scores and P V, then dV, dP, dQ and dK
+        return int(2.5 * flash_flops(q, k, v, causal, window))
+
+
+_register_flops()
+
+
 def _forward(q, k, v, causal, window):
-    """The kernel on a CUDA tensor (head dims it has no instance for padded
-    as above), the plain version on a CPU tensor; any other device
-    raises."""
+    """The kernel's operator on a CUDA tensor (or a meta one inside
+    ``trace.meta_operators()``, by its fake implementation), the plain
+    version on a CPU tensor; any other device raises."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
-    if q.device.type == "cuda":
-        D, Dv = q.shape[3], v.shape[3]
-        P, Pv = padded_head_dims(D, Dv)
-        if (P, Pv) == (D, Dv) or P > 256:
-            return _flash_cuda(q, k, v, causal, window)
-        o = _flash_cuda(F.pad(q, (0, P - D)), F.pad(k, (0, P - D)),
-                        F.pad(v, (0, Pv - Dv)), causal, window,
-                        scale=D ** -0.5)
-        return o[..., :Dv]
+    if trace.operator_device(q.device):
+        return flash_attention_op(q, k, v, causal, window)
     raise ValueError(f"flash_attention: no kernel for device {q.device}")
 
 
@@ -288,8 +387,13 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v = ctx.saved_tensors
-        return (*flash_attention_backward(q, k, v, do, causal=ctx.causal,
-                                          window=ctx.window), None, None)
+        if q.device.type == "meta":
+            g = flash_attention_backward_op(q, k, v, do, ctx.causal,
+                                            ctx.window)
+        else:
+            g = flash_attention_backward(q, k, v, do, causal=ctx.causal,
+                                         window=ctx.window)
+        return (*g, None, None)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

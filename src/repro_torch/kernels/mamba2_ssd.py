@@ -34,14 +34,20 @@ Training differentiates through ``MambaSSD``: the kernel forward, and as
 backward the gradient of the plain version for x, dt, A, B and C in
 plain PyTorch (``mamba2_ssd_backward``), a sequence at a time; the final
 state takes no gradient.
+
+The scan is the operator ``repro_torch::mamba2_ssd``
+(``torch.library.custom_op``, with a fake implementation and a flop
+formula), so a mesh's ``local_map`` and the dry run's meta-tensor trace
+see one operator, not the plain version.
 """
 from __future__ import annotations
 
 import ctypes
+import re
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, trace
 
 MAX_DIM = 128           # P and N: the widest instantiated thread layout
 STAGED_DIMS = (16, 32, 64)  # P and N of the staged path (SSD_STAGED_DIMS)
@@ -229,14 +235,104 @@ def _ssd_cuda(x, dt, A, B, C, chunk: int, stages: bool):
     return (y, state, staged) if stages else (y, state)
 
 
+# The scan as the operator ``repro_torch::mamba2_ssd``: its real
+# implementation launches the kernel on CUDA tensors (and raises on any
+# other); its fake one gives the outputs' shapes, so a trace on meta
+# tensors (the mesh dry run) records the operator and never the plain
+# version.  ``repro_torch::mamba2_ssd_backward`` stands for the backward
+# in such a trace: the gradient is autograd's through the plain version,
+# which an operator's body cannot record, so on a device ``MambaSSD``
+# calls ``mamba2_ssd_backward`` itself and the operator's body raises.
+# The operators' namespace is ``repro_torch`` for the package's module; any
+# other copy of the module (``kernel_compare.py`` loads another checkout's
+# beside it) registers its own operators under its module name, so every
+# copy launches through its own.
+_NS = "repro_torch" if __name__ == "repro_torch.kernels.mamba2_ssd" \
+    else re.sub(r"\W", "_", __name__)
+
+
+@torch.library.custom_op(f"{_NS}::mamba2_ssd", mutates_args=())
+def mamba2_ssd_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                  B: torch.Tensor, C: torch.Tensor, chunk: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    if x.device.type != "cuda":
+        raise ValueError(f"mamba2_ssd: no kernel for device {x.device}")
+    _check_kernel(x, dt, A, B, C, chunk)
+    return _ssd_cuda(x, dt, A, B, C, chunk, False)
+
+
+@mamba2_ssd_op.register_fake
+def _ssd_fake(x, dt, A, B, C, chunk):
+    Bt, L, H, P = x.shape
+    return (x.new_empty((Bt, L, H, P), dtype=torch.float32),
+            x.new_empty((Bt, H, P, B.shape[-1]), dtype=torch.float32))
+
+
+@torch.library.custom_op(f"{_NS}::mamba2_ssd_backward", mutates_args=())
+def mamba2_ssd_backward_op(x: torch.Tensor, dt: torch.Tensor,
+                           A: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+                           dy: torch.Tensor, chunk: int
+                           ) -> tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    raise RuntimeError("mamba2_ssd_backward: the operator is traced, not "
+                       "run; call mamba2_ssd_backward")
+
+
+@mamba2_ssd_backward_op.register_fake
+def _ssd_backward_fake(x, dt, A, B, C, dy, chunk):
+    return tuple(torch.empty_like(t, memory_format=torch.contiguous_format)
+                 for t in (x, dt, A, B, C))
+
+
+def ssd_flops(x_shape, B_shape, chunk: int) -> float:
+    """Flops of one scan: for each (sequence, chunk) C B^T over the
+    c (c + 1) / 2 pairs t >= s, and for each head the masked product with
+    x dt over the same pairs, the carried state's part of y and the state
+    update (2 c P N each).  The mesh dry run counts the operator by this."""
+    Bt, L, H, P = x_shape
+    N = B_shape[-1]
+    c = min(chunk, L)
+    nc = L // c
+    pairs = c * (c + 1) // 2
+    return 2.0 * Bt * nc * pairs * N + \
+        Bt * H * nc * (2.0 * pairs * P + 4.0 * c * P * N)
+
+
+def _register_flops():
+    from torch.utils.flop_counter import flop_registry, register_flop_formula
+    ops = getattr(torch.ops, _NS)
+    if ops.mamba2_ssd in flop_registry:
+        return
+
+    @register_flop_formula(ops.mamba2_ssd)
+    def _fwd(x, dt, A, B, C, chunk, *args, out_shape=None, **kw):
+        return int(ssd_flops(x, B, chunk))
+
+    @register_flop_formula(ops.mamba2_ssd_backward)
+    def _bwd(x, dt, A, B, C, dy, chunk, *args, out_shape=None, **kw):
+        # the forward recomputed, then twice its products for the inputs
+        return int(3 * ssd_flops(x, B, chunk))
+
+
+_register_flops()
+
+
 def _forward(x, dt, A, B, C, chunk, stages):
-    """The kernel on a CUDA tensor, the plain version on a CPU tensor; any
-    other device raises."""
+    """The kernel on a CUDA tensor (through its operator, unless the staged
+    intermediates are asked for), the operator's fake implementation on a
+    meta tensor inside ``trace.meta_operators()``, the plain version on a
+    CPU tensor; any other device raises."""
     if x.device.type == "cpu":
         return mamba2_ssd_plain(x, dt, A, B, C, chunk=chunk, stages=stages)
+    if x.device.type == "meta" and not stages and \
+            trace.operator_device(x.device):
+        return mamba2_ssd_op(x, dt, A, B, C, chunk)
     _check_kernel(x, dt, A, B, C, chunk)
     if x.device.type == "cuda":
-        return _ssd_cuda(x, dt, A, B, C, chunk, stages)
+        if stages:
+            return _ssd_cuda(x, dt, A, B, C, chunk, stages)
+        return mamba2_ssd_op(x, dt, A, B, C, chunk)
     raise ValueError(f"mamba2_ssd: no kernel for device {x.device}")
 
 
@@ -286,8 +382,12 @@ class MambaSSD(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, _dstate):
-        return (*mamba2_ssd_backward(*ctx.saved_tensors, dy,
-                                     chunk=ctx.chunk), None)
+        if dy.device.type == "meta":
+            g = mamba2_ssd_backward_op(*ctx.saved_tensors, dy.contiguous(),
+                                       ctx.chunk)
+        else:
+            g = mamba2_ssd_backward(*ctx.saved_tensors, dy, chunk=ctx.chunk)
+        return (*g, None)
 
 
 def mamba2_ssd_cuda(x, dt, A, B, C, *, chunk: int = 256,

@@ -1,20 +1,124 @@
-"""Concrete model inputs and caches for the LM stack.
+"""Model inputs and caches for the LM stack: stand-ins for tracing, and
+concrete ones.
 
-The port of the reference's ``launch/specs.py`` helpers that serving uses
-(``make_batch``, ``init_cache``); the ``ShapeDtypeStruct`` stand-ins for
-lowering have no counterpart here (PyTorch runs eagerly) and port with the
-mesh tooling (ROADMAP Queue 1 item 10).
+The port of the reference's ``launch/specs.py``.  ``input_specs(cfg,
+shape)`` returns the step's arguments as stand-ins that hold no memory:
+
+  train:    {"batch": {tokens, labels [, patches | frames]}}
+  prefill:  {"batch": {tokens [, patches | frames]}}
+  decode:   {"token", "pos", "cache"}
+
+Where the reference gives ``ShapeDtypeStruct``s, these are tensors on the
+``meta`` device (fake tensors where a ``FakeTensorMode`` is active); with
+``mesh`` and ``rules`` given each is a DTensor of its rule's placements,
+its local shard this rank's, so the mesh dry run traces the step on
+them.  ``make_batch`` and ``init_cache`` make concrete ones for serving.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import model as mdl
+from repro_torch.sharding import RULE_SETS, logical_to_placements, spec_map
 
 MODEL_DTYPE = torch.bfloat16
 POS_EMPTY = 1 << 30     # an unwritten cache slot's position: always masked
 
 
+def _contiguous_strides(shape):
+    st, n = [], 1
+    for d in reversed(shape):
+        st.append(n)
+        n *= d
+    return tuple(reversed(st))
+
+
+def struct(shape, dtype, axes, mesh=None, rules=None, device="meta"):
+    """A stand-in of ``shape`` and ``dtype`` on ``device``; with ``mesh``
+    and ``rules``, a DTensor of the placements ``axes`` map to, holding
+    this rank's shard."""
+    shape = tuple(shape)
+    if mesh is None or rules is None:
+        return torch.empty(shape, dtype=dtype, device=device)
+    from torch.distributed.tensor import DTensor
+    if isinstance(rules, str):
+        rules = RULE_SETS[rules]
+    pl = logical_to_placements(axes, rules, mesh, shape)
+    local = list(shape)
+    for i, p in enumerate(pl):
+        if p.is_shard():
+            local[p.dim] //= mesh.size(i)
+    return DTensor.from_local(
+        torch.empty(local, dtype=dtype, device=device), mesh, pl,
+        run_check=False, shape=torch.Size(shape),
+        stride=_contiguous_strides(shape))
+
+
+def spec_structs(specs, mesh, rules, dtype, device="meta"):
+    """A spec tree's stand-ins (``struct`` of each spec), a leaf without a
+    dtype of its own in ``dtype``."""
+    return spec_map(lambda s: struct(s.shape, s.dtype or dtype, s.axes,
+                                     mesh, rules, device), specs)
+
+
+def batch_specs(cfg, S: int, B: int, *, with_labels: bool, mesh=None,
+                rules=None, device="meta"):
+    b = {"tokens": struct((B, S), torch.int32, ("batch", "seq"), mesh, rules,
+                          device)}
+    if with_labels:
+        b["labels"] = struct((B, S), torch.int32, ("batch", "seq"), mesh,
+                             rules, device)
+    if cfg.family == "vlm":
+        b["patches"] = struct((B, cfg.n_patches, cfg.vit_dim), MODEL_DTYPE,
+                              ("batch", "seq", None), mesh, rules, device)
+    if cfg.family == "audio":
+        b["frames"] = struct((B, cfg.encoder_len, cfg.d_model), MODEL_DTYPE,
+                             ("batch", "frames", "embed"), mesh, rules,
+                             device)
+    return b
+
+
+def param_structs(cfg, mesh=None, rules=None, dtype=MODEL_DTYPE,
+                  device="meta"):
+    """The parameter tree of ``mdl.param_specs`` as stand-ins (``LM(cfg,
+    param_structs(...))`` is a model of them)."""
+    return spec_structs(mdl.param_specs(cfg), mesh, rules, dtype, device)
+
+
+def cache_structs(cfg, B: int, T: int, mesh=None, rules=None,
+                  dtype=MODEL_DTYPE, device="meta"):
+    return spec_structs(mdl.cache_specs(cfg, B, T), mesh, rules, dtype,
+                        device)
+
+
+def decode_specs(cfg, shape, mesh=None, rules=None, device="meta"):
+    B, T = shape.global_batch, shape.seq_len
+    return {
+        "token": struct((B, 1), torch.int32, ("batch", "seq"), mesh, rules,
+                        device),
+        "pos": torch.empty((), dtype=torch.int32, device=device),
+        "cache": cache_structs(cfg, B, T, mesh, rules, device=device),
+    }
+
+
+def input_specs(cfg, shape, mesh=None, rules=None, device="meta"):
+    """Every model input for the step implied by ``shape.kind``."""
+    if shape.kind == "train":
+        return {"batch": batch_specs(cfg, shape.seq_len, shape.global_batch,
+                                     with_labels=True, mesh=mesh, rules=rules,
+                                     device=device)}
+    if shape.kind == "prefill":
+        return {"batch": batch_specs(cfg, shape.seq_len, shape.global_batch,
+                                     with_labels=False, mesh=mesh,
+                                     rules=rules, device=device)}
+    if shape.kind == "decode":
+        return decode_specs(cfg, shape, mesh, rules, device)
+    raise ValueError(shape.kind)
+
+
+# ---------------------------------------------------------------------------
+# Concrete batches and caches
+# ---------------------------------------------------------------------------
 def make_batch(cfg, S: int, B: int, generator: torch.Generator,
                device=None):
     """Random prompt tokens and, for the vlm and audio families, the

@@ -32,14 +32,20 @@ window.)
 symmetric int8 rows with one fp32 scale a (token, head) (``_quant_rows``);
 as in the reference, the scales fold into the scores and the
 probabilities, so the dequantized cache never materializes.
+
+Under a mesh the ``shard`` calls sit where the reference's do; the flash
+kernel and the decode steps' cache work run on each rank's shard
+(``models/sharded.py``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.models import sharded as SH
 from repro_torch.models.layers import apply_rope, rms_norm
 from repro_torch.models.params import Spec
+from repro_torch.sharding import gather, is_dtensor, shard, split_heads
 
 NEG = -2.0e38
 
@@ -156,7 +162,10 @@ def _apply_probs(p, v):
 def _flash(q, k, v, window=0, causal=True):
     """Attention of (B,S,*,D) tensors through the flash kernel, as its
     (B,*,S,D) views: causal (windowed) with Sq = Sk, or non-causal with any
-    Sq, Sk; returns (B,Sq,H,Dv)."""
+    Sq, Sk; returns (B,Sq,H,Dv).  DTensors (under a mesh) go through
+    ``sharded.flash``: the kernel on each rank's shard, in ``local_map``."""
+    if is_dtensor(q):
+        return SH.flash(_flash, q, k, v, window, causal)
     o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2), causal=causal, window=window)
     return o.transpose(1, 2)
@@ -165,20 +174,21 @@ def _flash(q, k, v, window=0, causal=True):
 # ---------------------------------------------------------------------------
 # GQA layer
 # ---------------------------------------------------------------------------
-def _proj(h, w):
+def _proj(h, w, heads="heads"):
     """h (B,S,d) @ w (d, heads, dh) -> (B,S,heads,dh).  h is cast to w's
     dtype: a bf16 input to fp32 weights (whisper's frames in an fp32 run),
-    which the reference's einsum promotes so."""
+    which the reference's einsum promotes so.  ``heads`` names the head
+    axis for ``shard``."""
     d, n, dh = w.shape
-    y = h.to(w.dtype) @ w.reshape(d, n * dh)
-    return y.reshape(*h.shape[:2], n, dh)
+    y = h.to(w.dtype) @ gather(w).reshape(d, n * dh)
+    return shard(split_heads(y, n, dh), "batch", "seq", heads, None)
 
 
 def _qkv(p, x, cfg, theta, pos):
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     q = _proj(h, p["wq"])
-    k = _proj(h, p["wk"])
-    v = _proj(h, p["wv"])
+    k = _proj(h, p["wk"], "kv_heads")
+    v = _proj(h, p["wv"], "kv_heads")
     if theta:
         q = apply_rope(q, pos, theta)
         k = apply_rope(k, pos, theta)
@@ -188,7 +198,8 @@ def _qkv(p, x, cfg, theta, pos):
 def _out(o, wo):
     """o (B,S,H,dh) @ wo (H, dh, d) -> (B,S,d)."""
     H, dh, d = wo.shape
-    return o.reshape(*o.shape[:2], H * dh) @ wo.reshape(H * dh, d)
+    y = o.reshape(*o.shape[:2], H * dh) @ gather(wo).reshape(H * dh, d)
+    return shard(y, "batch", "seq", "embed")
 
 
 def gqa_fwd(p, x, cfg, *, theta, window=0, causal=True, want_cache=False):
@@ -217,39 +228,58 @@ def gqa_step(p, x, cfg, cache, pos, *, theta, window=0):
     ``min(pos, T - 1)``; returns (y, the same cache dict).  An int8 cache
     (``k_s`` in it) takes the new rows quantized; its scores are the dot
     with the int8 keys, then times their scales, and the v scales fold
-    into the probabilities, as the reference's."""
+    into the probabilities, as the reference's.  A cache of DTensors (under
+    a mesh) runs the same body on each rank's shard
+    (``sharded.cache_decode``)."""
     pos = int(pos)
     posv = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
                       device=x.device)
     q, k, v = _qkv(p, x, cfg, theta, posv)
-    ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
-    T = ck.shape[1]
+    T = cache["k"].shape[1]
     slot = pos % T if window else min(pos, T - 1)
     int8_kv = "k_s" in cache
-    if int8_kv:
-        ck[:, slot], cache["k_s"][:, slot] = _quant_rows(k[:, 0])
-        cv[:, slot], cache["v_s"][:, slot] = _quant_rows(v[:, 0])
+    names = ("k", "v", "pos") + (("k_s", "v_s") if int8_kv else ())
+
+    def attend(qkv, cl, sl, t0, softmax, reduce_ctx):
+        q, k, v = qkv
+        ck, cv, cpos = cl[:3]
+        if sl is not None:
+            if int8_kv:
+                ck[:, sl], cl[3][:, sl] = _quant_rows(k[:, 0])
+                cv[:, sl], cl[4][:, sl] = _quant_rows(v[:, 0])
+            else:
+                ck[:, sl] = k[:, 0].to(ck.dtype)
+                cv[:, sl] = v[:, 0].to(cv.dtype)
+            cpos[:, sl] = pos
+        valid = cpos <= pos
+        if window:
+            valid &= cpos > pos - window
+        if int8_kv:
+            s = _grouped_scores(q, ck.to(q.dtype), out_dtype=q.dtype)
+            s = s * cl[3].transpose(1, 2)[:, :, None, None, :]
+        else:
+            s = _grouped_scores(q, ck, out_dtype=ck.dtype)
+        s = s * (cfg.dh ** -0.5)
+        s = torch.where(valid[:, None, None, None, :], s,
+                        torch.full_like(s, NEG))
+        pr = softmax(s)
+        if int8_kv:
+            # sum_t (p_t v_s_t) v_q_t
+            pr = pr * cl[4].transpose(1, 2)[:, :, None, None, :]
+            return reduce_ctx(_apply_probs(pr, cv.to(q.dtype)))
+        return reduce_ctx(_apply_probs(pr, cv))
+
+    if is_dtensor(cache["k"]):
+        kv = ("cache_batch", "cache_seq", "kv_heads", "head_dim")
+        o = SH.cache_decode(
+            attend, cache, names, (kv, kv, kv[:2], kv[:3], kv[:3]),
+            [q, k, v], [("batch", "seq", "heads", None),
+                        ("batch", "seq", "kv_heads", None),
+                        ("batch", "seq", "kv_heads", None)],
+            slot, ("batch", "seq", "heads", None))
     else:
-        ck[:, slot] = k[:, 0].to(ck.dtype)
-        cv[:, slot] = v[:, 0].to(cv.dtype)
-    cpos[:, slot] = pos
-    valid = cpos <= pos
-    if window:
-        valid &= cpos > pos - window
-    if int8_kv:
-        s = _grouped_scores(q, ck.to(q.dtype), out_dtype=q.dtype)
-        s = s * cache["k_s"].transpose(1, 2)[:, :, None, None, :]
-    else:
-        s = _grouped_scores(q, ck, out_dtype=ck.dtype)
-    s = s * (cfg.dh ** -0.5)
-    s = torch.where(valid[:, None, None, None, :], s, torch.full_like(s, NEG))
-    pr = torch.softmax(s, dim=-1)
-    if int8_kv:
-        # sum_t (p_t v_s_t) v_q_t
-        pr = pr * cache["v_s"].transpose(1, 2)[:, :, None, None, :]
-        o = _apply_probs(pr, cv.to(q.dtype))
-    else:
-        o = _apply_probs(pr, cv)
+        o = attend((q, k, v), [cache[n] for n in names], slot, 0,
+                   lambda s: torch.softmax(s, dim=-1), lambda c: c)
     return _out(o, p["wo"]), cache
 
 
@@ -261,11 +291,11 @@ def _mla_qkv_latent(p, x, cfg, pos):
     k_rope (B,S,dr)), the rope parts rotated at ``pos``."""
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     dn, kvr = cfg.qk_nope_head_dim, cfg.kv_lora_rank
-    cq = rms_norm(h @ p["wdq"], p["q_ln"], cfg.norm_eps)
+    cq = rms_norm(h @ gather(p["wdq"]), p["q_ln"], cfg.norm_eps)
     q = _proj(cq, p["wuq"])
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = apply_rope(q_rope, pos, cfg.rope_theta)
-    ckv_full = h @ p["wdkv"]
+    ckv_full = h @ gather(p["wdkv"])
     ckv = rms_norm(ckv_full[..., :kvr], p["kv_ln"], cfg.norm_eps)
     k_rope = apply_rope(ckv_full[..., None, kvr:], pos, cfg.rope_theta)
     return q_nope, q_rope, ckv, k_rope[:, :, 0]
@@ -299,42 +329,71 @@ def mla_step(p, x, cfg, cache, pos, *, absorb=True):
     the cache is expanded into per-head keys and values.  An int8 latent
     cache (``ckv_s`` in it) is cast to x's dtype; absorbed, its row scales
     fold into the scores and the probabilities, expanded, they multiply
-    the latent first, as the reference's."""
+    the latent first, as the reference's.  A cache of DTensors (under a
+    mesh) runs the absorbed body on each rank's shard
+    (``sharded.cache_decode``)."""
     pos = int(pos)
     B = x.shape[0]
     posv = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q_nope, q_rope, ckv, k_rope = _mla_qkv_latent(p, x, cfg, posv)
-    cckv, ckr, cpos = cache["ckv"], cache["krope"], cache["pos"]
-    slot = min(pos, cckv.shape[1] - 1)
+    slot = min(pos, cache["ckv"].shape[1] - 1)
     int8_kv = "ckv_s" in cache
-    if int8_kv:
-        cckv[:, slot], cache["ckv_s"][:, slot] = _quant_rows(ckv[:, 0])
-        lat, ccs = cckv.to(x.dtype), cache["ckv_s"]
-    else:
-        cckv[:, slot] = ckv[:, 0].to(cckv.dtype)
-        lat = cckv
-    ckr[:, slot] = k_rope[:, 0].to(ckr.dtype)
-    cpos[:, slot] = pos
-    valid = (cpos <= pos)[:, None, None, :]                 # (B,1,1,T)
+    names = ("ckv", "krope", "pos") + (("ckv_s",) if int8_kv else ())
     scale = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
-    if absorb:
+
+    def write(cl, sl, ckv, k_rope):
+        cckv, ckr, cpos = cl[:3]
+        if sl is not None:
+            if int8_kv:
+                cckv[:, sl], cl[3][:, sl] = _quant_rows(ckv[:, 0])
+            else:
+                cckv[:, sl] = ckv[:, 0].to(cckv.dtype)
+            ckr[:, sl] = k_rope[:, 0].to(ckr.dtype)
+            cpos[:, sl] = pos
+        lat = cckv.to(x.dtype) if int8_kv else cckv
+        return lat, ckr, (cpos <= pos)[:, None, None, :]     # (B,1,1,T)
+
+    def attend(args, cl, sl, t0, softmax, reduce_ctx):
         # scores = (q_nope wuk^T) . ckv + q_rope . k_rope, each product in
         # the cache's dtype (bf16 rounded before the upcast, as the
         # reference's preferred_element_type)
-        q_lat = torch.einsum("bshk,rhk->bshr", q_nope, p["wuk"])
+        q_lat, q_rope, ckv, k_rope = args
+        lat, ckr, valid = write(cl, sl, ckv, k_rope)
         s = torch.einsum("bshr,btr->bhst", q_lat, lat).float()
         if int8_kv:
-            s = s * ccs[:, None, None, :]
+            s = s * cl[3][:, None, None, :]
         s = s + torch.einsum("bshk,btk->bhst", q_rope, ckr).float()
         s = torch.where(valid, s * scale, torch.full_like(s, NEG))
-        pr = torch.softmax(s, dim=-1)
+        pr = softmax(s)
         if int8_kv:
-            pr = pr * ccs[:, None, None, :]
-        ctx = torch.einsum("bhst,btr->bshr", pr.to(x.dtype), lat)
+            pr = pr * cl[3][:, None, None, :]
+        return reduce_ctx(torch.einsum("bhst,btr->bshr", pr.to(x.dtype),
+                                       lat))
+
+    if is_dtensor(cache["ckv"]):
+        if not absorb:
+            raise ValueError("mla_step: under a mesh only the absorbed form")
+        q_lat = torch.einsum("bshk,rhk->bshr", q_nope, gather(p["wuk"]))
+        bt = ("cache_batch", "cache_seq")
+        ctx = SH.cache_decode(
+            attend, cache, names,
+            (bt + ("kv_lora",), bt + ("head_dim",), bt, bt),
+            [q_lat, q_rope, ckv, k_rope],
+            [("batch", "seq", "heads", None), ("batch", "seq", "heads", None),
+             ("batch", "seq", None), ("batch", "seq", None)],
+            slot, ("batch", "seq", "heads", None))
+        o = torch.einsum("bshr,rhk->bshk", ctx, gather(p["wuv"]))
+    elif absorb:
+        q_lat = torch.einsum("bshk,rhk->bshr", q_nope, p["wuk"])
+        ctx = attend((q_lat, q_rope, ckv, k_rope),
+                     [cache[n] for n in names], slot, 0,
+                     lambda s: torch.softmax(s, dim=-1), lambda c: c)
         o = torch.einsum("bshr,rhk->bshk", ctx, p["wuv"])
     else:
+        lat, ckr, valid = write([cache[n] for n in names], slot, ckv,
+                                k_rope)
         if int8_kv:
-            lat = lat * ccs[..., None].to(x.dtype)
+            lat = lat * cache["ckv_s"][..., None].to(x.dtype)
         k_nope = torch.einsum("btr,rhk->bthk", lat, p["wuk"])
         v = torch.einsum("btr,rhk->bthk", lat, p["wuv"])
         k = torch.cat([k_nope, ckr[:, :, None, :].expand(
@@ -358,7 +417,8 @@ def cross_memory(p, memory, cfg):
     """The encoder's output projected to the cross keys and values: dict
     k / v (B, Se, Kh, D), computed once a prefill and kept as the cross
     cache."""
-    return {"k": _proj(memory, p["wk"]), "v": _proj(memory, p["wv"])}
+    return {"k": _proj(memory, p["wk"], "kv_heads"),
+            "v": _proj(memory, p["wv"], "kv_heads")}
 
 
 def _cross_q(p, x, cfg):

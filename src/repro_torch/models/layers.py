@@ -5,6 +5,11 @@ The port of the reference's ``models/layers.py``, with its losses.  Casts
 follow the reference: norms compute in fp32 and return the input's dtype,
 RoPE rotates in fp32, matmuls keep their operands' dtype (a bf16 product
 accumulates in fp32 and rounds once).
+
+Under a mesh (``sharding.use_rules`` with DTensor weights) the ``shard``
+calls sit where the reference's do, and each weight is first brought to
+its placements without the FSDP axis (``sharding.gather``): the
+per-use all-gather of ZeRO-3.  Outside a mesh both are the identity.
 """
 from __future__ import annotations
 
@@ -15,13 +20,15 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.params import Spec
+from repro_torch.sharding import (gather, is_dtensor, shard,
+                                  under_current_rules)
 
 
 def rms_norm(x, w, eps=1e-6):
     dt = x.dtype
     x = x.float()
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
-    return (x * (1.0 + w.float())).to(dt)
+    return (x * (1.0 + gather(w).float())).to(dt)
 
 
 def layer_norm(x, w, b, eps=1e-5):
@@ -40,7 +47,7 @@ def group_norm_heads(x, w, eps=1e-6):
     x = x.float()
     mu = torch.mean(x, dim=-1, keepdim=True)
     var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
-    return ((x - mu) * torch.rsqrt(var + eps) * w.float()).to(dt)
+    return ((x - mu) * torch.rsqrt(var + eps) * gather(w).float()).to(dt)
 
 
 def _gelu(x):
@@ -101,9 +108,11 @@ def mlp_specs(d: int, ff: int):
 
 def mlp_fwd(p, x, act="silu", eps=1e-6):
     h = rms_norm(x, p["ln"], eps)
-    g = h @ p["w_gate"]
-    u = h @ p["w_up"]
-    return (act_fn(act)(g) * u) @ p["w_down"]
+    g = h @ gather(p["w_gate"])
+    u = h @ gather(p["w_up"])
+    g = shard(act_fn(act)(g) * u, "batch", "seq", "mlp")
+    return shard(g @ gather(p["w_down"]), "batch", "seq",
+                 "embed")
 
 
 # ---------------------------------------------------------------------------
@@ -124,15 +133,20 @@ def embed_scale(d: int) -> float:
 
 def embed(p, tokens, d):
     tok = p["tok"]
-    return tok[tokens] * torch.tensor(embed_scale(d), dtype=tok.dtype,
-                                      device=tok.device)
+    x = F.embedding(tokens, tok) * torch.tensor(
+        embed_scale(d), dtype=tok.dtype, device=tok.device)
+    return shard(x, "batch", "seq", "embed")
+
+
+def head_matrix(p):
+    """The unembedding (d, V): ``head``, or the tied table transposed; under
+    a mesh without its FSDP axis."""
+    w = p.get("head")
+    return gather(p["tok"]).T if w is None else gather(w)
 
 
 def unembed(p, x):
-    w = p.get("head")
-    if w is None:
-        w = p["tok"].T
-    return x @ w
+    return shard(x @ head_matrix(p), "batch", "seq", "vocab")
 
 
 # ---------------------------------------------------------------------------
@@ -142,6 +156,9 @@ def _label_nll(logits, labels):
     """(logZ - logit of the label) per position, in fp32.  The label's
     logit is gathered: the reference sums the logits against a one-hot,
     which adds exact zeros to the same value."""
+    if is_dtensor(logits):
+        from repro_torch.models import sharded
+        return sharded.label_nll(_label_nll, logits, labels)
     logits = logits.float()
     ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     return torch.logsumexp(logits, dim=-1) - ll
@@ -165,16 +182,14 @@ def softmax_xent_fused(embed_p, x, labels, mask=None, chunk=512):
     ``jax.checkpoint``'d chunk body; here the remainder's chunk too).
     Chunks are summed in order, then the remainder, as the reference's
     scan."""
-    W = embed_p.get("head")
-    if W is None:
-        W = embed_p["tok"].T                       # (d, V)
+    W = head_matrix(embed_p)                       # (d, V)
     S = x.shape[1]
     c = min(chunk, S)
     if mask is None:
         mask = torch.ones_like(labels)
 
     def chunk_loss(xc, lc, mc):
-        nll = _label_nll(xc @ W, lc)
+        nll = _label_nll(shard(xc @ W, "batch", "seq", "vocab"), lc)
         m = mc.float()
         return torch.sum(nll * m), torch.sum(m)
 
@@ -184,7 +199,8 @@ def softmax_xent_fused(embed_p, x, labels, mask=None, chunk=512):
     for i in range(0, S, c):
         args = (x[:, i:i + c], labels[:, i:i + c], mask[:, i:i + c])
         if grad:
-            dt, dn = checkpoint(chunk_loss, *args, use_reentrant=False)
+            dt, dn = checkpoint(under_current_rules(chunk_loss), *args,
+                                use_reentrant=False)
         else:
             dt, dn = chunk_loss(*args)
         tot, cnt = tot + dt, cnt + dn

@@ -66,6 +66,7 @@ from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models import xlstm as X
 from repro_torch.models.params import Params, Spec, init_params
+from repro_torch.sharding import gather, shard, under_current_rules
 
 FAMILIES = ("dense", "vlm", "hybrid", "moe", "gemma3", "ssm", "audio")
 
@@ -94,7 +95,9 @@ def _mlp_fwd(p, x, cfg):
     if "w_gate" in p:
         return L.mlp_fwd(p, x, cfg.act, cfg.norm_eps)
     h = L.rms_norm(x, p["ln"], cfg.norm_eps)
-    return L.act_fn(cfg.act)(h @ p["w_up"]) @ p["w_down"]
+    u = shard(L.act_fn(cfg.act)(h @ gather(p["w_up"])), "batch", "seq",
+              "mlp")
+    return shard(u @ gather(p["w_down"]), "batch", "seq", "embed")
 
 
 def _block_specs(cfg):
@@ -438,8 +441,8 @@ def _inject_inputs(params, cfg, batch):
     if cfg.family == "vlm" and "patches" in batch:
         pp = params["projector"]
         h = L.rms_norm(batch["patches"], pp["ln"], cfg.norm_eps)
-        h = L.act_fn("gelu")(h.to(pp["w1"].dtype) @ pp["w1"])
-        h = (h @ pp["w2"]).to(x.dtype)
+        h = L.act_fn("gelu")(h.to(pp["w1"].dtype) @ gather(pp["w1"]))
+        h = (h @ gather(pp["w2"])).to(x.dtype)
         x = torch.cat([h, x[:, h.shape[1]:]], dim=1)
     if cfg.family == "audio":
         x = x + L.sinusoid_pos_emb(x.shape[1], cfg.d_model,
@@ -453,8 +456,8 @@ def _remat(block, cfg, *args):
     backward recomputes it.  The model draws no random numbers, so the RNG
     state is not stashed."""
     if cfg.remat and torch.is_grad_enabled():
-        return checkpoint(block, cfg, *args, use_reentrant=False,
-                          preserve_rng_state=False)
+        return checkpoint(under_current_rules(block), cfg, *args,
+                          use_reentrant=False, preserve_rng_state=False)
     return block(cfg, *args)
 
 
@@ -484,6 +487,9 @@ def forward(params, cfg, batch, *, want_cache=False, return_hidden=False):
             shared = A.cross_memory(bp["cross"], memory, cfg)
             cross.append(shared)
         x, c, a = _remat(bp, cfg, x, shared, want_cache)
+        # sequence-parallel boundary: under "fsdp_sp" rules the carry (the
+        # dominant activation buffer) is seq-sharded over "model"
+        x = shard(x, "batch", "act_seq", "embed")
         aux = aux + a
         caches.append(c)
     x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
@@ -518,7 +524,7 @@ def _mtp_loss(params, cfg, batch):
     ``labels[:, 2:]``."""
     mp = params["mtp"]
     x = L.embed(params["embed"], batch["tokens"], cfg.d_model)
-    h = torch.cat([x[:, :-1], x[:, 1:]], dim=-1) @ mp["proj"]
+    h = torch.cat([x[:, :-1], x[:, 1:]], dim=-1) @ gather(mp["proj"])
     y, _ = A.mla_fwd(mp["attn"], h, cfg)
     h = h + y
     h = h + _mlp_fwd(mp["mlp"], h, cfg)
@@ -565,5 +571,7 @@ def decode_step(params, cfg, token, pos, cache):
 def serve_step(params, cfg, token, pos, cache):
     """Greedy decode of one token."""
     logits, cache = decode_step(params, cfg, token, pos, cache)
+    # under a mesh the vocab is gathered first: each rank picks the same
+    logits = shard(logits, "batch", None)
     nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
     return nxt, cache

@@ -28,17 +28,28 @@ one preallocated buffer; with nothing recorded both stay in place, as
 serving wants (the same values either way).  int8 expert matrices take
 no gradient.
 
-Not ported: the mesh code (``_moe_decode_ep``, ``_resolve_axes``,
-``_linear_index`` and the ``shard_map`` expert-parallel branch), which
-ports with the mesh tooling (ROADMAP Queue 1 item 11).
+Under a mesh (``sharding.use_rules`` with DTensor weights) the two
+expert-parallel branches of the reference run in ``local_map`` with
+functional collectives: the model-axis branch (experts split over
+``model``; each rank routes its tokens, runs its local experts and the
+partial outputs are summed over ``model``), and ``_moe_decode_ep``
+(experts over the batch axes, as ``decode_moe`` rules put them: the tokens
+are all-gathered over those axes, each rank runs its experts, sums over
+``model`` where the expert hidden dim is split there, and reduce-scatters
+the outputs back).  As in the reference, each rank's capacity counts its
+own tokens, and the aux loss is the first rank's.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Partial, Replicate
 
+from repro_torch import sharding as shd
+from repro_torch.models import sharded as SH
 from repro_torch.models.layers import act_fn, rms_norm
 from repro_torch.models.params import Spec
+from repro_torch.sharding import gather, is_dtensor, shard
 
 # the most bytes of expert matrices cast out of int8 at once
 CAST_BYTES = 1 << 30
@@ -130,18 +141,29 @@ def _experts(pk, w_gate, w_up, w_down, act, scales=None):
 
 
 def _expert_compute(xf, topw, topi, w_gate, w_up, w_down, act, cf=1.25,
-                    scales=None):
-    """The assignments of every token to every expert, through a
-    capacity-C packed buffer.  xf: (T, d); topw/topi: (T, k).  Returns
-    (T, d) in xf's dtype."""
+                    scales=None, e_lo=0, E_local=None, E_total=None):
+    """The assignments of every token to experts [e_lo, e_lo + E_local)
+    (all of them by default), through a capacity-C packed buffer with C
+    counted for ``E_total`` experts.  xf: (T, d); topw/topi: (T, k).
+    Returns the (T, d) partial output in xf's dtype; an assignment to
+    another rank's expert adds zero."""
     T, k = topi.shape
-    d, E = xf.shape[-1], w_gate.shape[0]
-    C = _capacity(T, k, E, cf)
+    d = xf.shape[-1]
+    E = E_local or w_gate.shape[0]
+    C = _capacity(T, k, E_total or E, cf)
     dev = xf.device
-    le_s, order = torch.sort(topi.reshape(-1), stable=True)
+    flat_e = topi.reshape(-1)
+    if E_local is None:
+        le = flat_e
+    else:
+        local = (flat_e >= e_lo) & (flat_e < e_lo + E)
+        le = torch.where(local, flat_e - e_lo, E)  # overflow bucket = E
+    le_s, order = torch.sort(le, stable=True)
     tok_s = torch.arange(T, device=dev).repeat_interleave(k)[order]
     w_s = topw.reshape(-1)[order]
-    counts = torch.bincount(le_s, minlength=E)[:E]
+    # per-expert counts (a static size: E + 1 buckets)
+    counts = torch.zeros(E + 1, dtype=le_s.dtype, device=dev).index_add_(
+        0, le_s, torch.ones_like(le_s))[:E]
     starts = torch.cumsum(counts, 0) - counts
     # slot -> source assignment (the reference's arithmetic); T is the
     # zero pad row
@@ -157,12 +179,15 @@ def _expert_compute(xf, topw, topi, w_gate, w_up, w_down, act, cf=1.25,
     w = slot_w[:, None].to(o.dtype)
     # in place where nothing is recorded; autograd keeps the unscaled o
     o = o * w if torch.is_grad_enabled() else o.mul_(w)
-    # assignment -> its slot, and whether it kept one (a dropped one reads
-    # its expert's last slot, times 0)
-    rank = torch.arange(T * k, device=dev) - starts[le_s]
+    # assignment -> its slot, and whether it kept one (a dropped one, or
+    # one to another rank's expert, reads a slot of this rank times 0)
+    mine = le_s < E
+    le_c = torch.clamp(le_s, max=E - 1)
+    rank = torch.arange(T * k, device=dev) - torch.cat(
+        [starts, starts.new_full((1,), T * k)])[le_s]
     slot, kept = torch.empty_like(le_s), torch.empty_like(le_s)
-    slot[order] = le_s * C + torch.clamp(rank, max=C - 1)
-    kept[order] = (rank < C).long()
+    slot[order] = le_c * C + torch.clamp(rank, min=0, max=C - 1)
+    kept[order] = ((rank < C) & mine).long()
     slot, kept = slot.reshape(T, k), kept.reshape(T, k).to(o.dtype)
     y = o[slot[:, 0]] * kept[:, :1]
     for j in range(1, k):
@@ -170,21 +195,147 @@ def _expert_compute(xf, topw, topi, w_gate, w_up, w_down, act, cf=1.25,
     return y.to(xf.dtype)
 
 
+def _resolve_axes(rules, mesh, key):
+    """Mesh axes a logical axis maps to (only those present in the mesh)."""
+    m = rules.get(key) if rules else None
+    names = shd.axis_names(mesh) if mesh is not None else ()
+    flat = [a for a in (m if isinstance(m, (tuple, list)) else (m,))
+            if a is not None and a in names]
+    return tuple(flat)
+
+
+def _linear_index(axes, mesh):
+    """This rank's index over the mesh axes ``axes``, the first major."""
+    names = shd.axis_names(mesh)
+    return SH.coordinate(mesh, [names.index(a) for a in axes])
+
+
+def _scales(p, cfg):
+    return tuple(p[s] for _, s in _EXPERT_W) \
+        if cfg.expert_weights_dtype == "int8" else None
+
+
 def moe_fwd(p, x, cfg):
     """x: (B,S,d) -> (y, aux_loss)."""
     B, S, d = x.shape
     h = rms_norm(x, p["ln"], cfg.norm_eps)
-    hf = h.reshape(B * S, d)
-    topw, topi, aux = _route(hf, p["router"], cfg.experts_per_token)
-    sc = tuple(p[s] for _, s in _EXPERT_W) \
-        if cfg.expert_weights_dtype == "int8" else None
-    y = _expert_compute(hf, topw, topi, p["w_gate"], p["w_up"], p["w_down"],
-                        cfg.act, cfg.capacity_factor, sc).reshape(B, S, d)
+    act = shd.active() if is_dtensor(h) else None
+    if act is not None:
+        mesh, rules = act
+        E = cfg.n_experts
+        ep_axes = _resolve_axes(rules, mesh, "experts")
+        batch_axes = _resolve_axes(rules, mesh, "batch")
+        if ep_axes and set(ep_axes) & set(batch_axes) and \
+                E % shd.mesh_axis_size(mesh, ep_axes) == 0:
+            # ---- decode EP: experts spread over the batch-sharded axes ----
+            y, aux = _moe_decode_ep(p, h, cfg, mesh, rules, ep_axes)
+        else:
+            y, aux = _moe_model_ep(p, h, cfg, mesh, rules)
+    else:
+        hf = h.reshape(B * S, d)
+        topw, topi, aux = _route(hf, p["router"], cfg.experts_per_token)
+        y = _expert_compute(hf, topw, topi, p["w_gate"], p["w_up"],
+                            p["w_down"], cfg.act, cfg.capacity_factor,
+                            _scales(p, cfg)).reshape(B, S, d)
     if cfg.n_shared_experts:
-        g = h @ p["sh_gate"]
-        u = h @ p["sh_up"]
-        y = y + (act_fn(cfg.act)(g) * u) @ p["sh_down"]
-    return y, aux
+        g = h @ gather(p["sh_gate"])
+        u = h @ gather(p["sh_up"])
+        y = y + (act_fn(cfg.act)(g) * u) @ gather(p["sh_down"])
+    return shard(y, "batch", "seq", "embed"), aux
+
+
+def _grad_partial(mesh, dims):
+    return tuple(Partial() if i in dims else Replicate()
+                 for i in range(mesh.ndim))
+
+
+def _moe_model_ep(p, h, cfg, mesh, rules):
+    """Experts split over ``model`` (where it divides E; else each rank
+    holds all): each rank routes its tokens, runs its local experts and the
+    partial outputs are summed over ``model``.  FSDP's split of the expert
+    hidden dim over ``data`` is gathered first (per-layer all-gather)."""
+    E, k, d = cfg.n_experts, cfg.experts_per_token, cfg.d_model
+    names = shd.axis_names(mesh)
+    mdims = [names.index("model")] if "model" in names and \
+        E % shd.mesh_axis_size(mesh, "model") == 0 else []
+    # each token whole on its rank (FSDP's "embed" split would take the
+    # data axis wherever the batch does not divide it)
+    xp = shd.placements_of(h, ("batch", "seq", None))
+    rp = (Replicate(),) * mesh.ndim
+    ws = [shd.placements_of(p[w], ("experts", None, None))
+          for w, _ in _EXPERT_W]
+    if not mdims:
+        ws = [rp] * 3
+    sc = _scales(p, cfg)
+    scp = [shd.logical_to_placements(("experts", None), rules, mesh)
+           if mdims else rp for _ in range(3)] if sc else []
+    bdims = SH.split_dims(xp, 0, mesh)
+    h = SH._to(h, mesh, xp)
+    args = [SH._to(p["router"], mesh, rp)] + \
+        [SH._to(p[w], mesh, pl) for (w, _), pl in zip(_EXPERT_W, ws)] + \
+        ([SH._to(s, mesh, pl) for s, pl in zip(sc, scp)] if sc else [])
+
+    def local_fn(hl, router, wg, wu, wd, *scales):
+        Bl, Sl, _ = hl.shape
+        hf = hl.reshape(Bl * Sl, d)
+        topw, topi, aux = _route(hf, router, k)
+        El = wg.shape[0]
+        e_lo = SH.coordinate(mesh, mdims) * El if mdims else 0
+        y = _expert_compute(hf, topw, topi, wg, wu, wd, cfg.act,
+                            cfg.capacity_factor, scales or None, e_lo, El, E)
+        if mdims:
+            y = SH.all_reduce(y, "sum", mesh, mdims)
+            if SH.coordinate(mesh, mdims):
+                aux = aux.detach()     # one rank's aux takes the gradient
+        return y.reshape(Bl, Sl, d), aux
+
+    return SH.local_map(local_fn, [xp, rp], [xp, rp, *ws, *scp], mesh,
+                        [xp, _grad_partial(mesh, bdims + mdims), *ws,
+                         *scp])(h, *args)
+
+
+def _moe_decode_ep(p, h, cfg, mesh, rules, ep_axes):
+    """EP where experts live on the batch-sharded axes (decode serving).
+
+    Each EP shard all-gathers the (tiny) token batch across EP axes, runs
+    its local experts (hidden dim TP-sharded over "model"), then
+    reduce-scatters outputs back to the owning batch shards: one gather and
+    one scatter in place of the GPU all-to-all pair."""
+    E, k, d = cfg.n_experts, cfg.experts_per_token, cfg.d_model
+    names = shd.axis_names(mesh)
+    tp = "model" if "model" in names else None
+    xp = shd.placements_of(h, ("batch", "seq", None))
+    rp = (Replicate(),) * mesh.ndim
+    w_in = shd.pspec_to_placements((ep_axes, None, tp), mesh)
+    w_out = shd.pspec_to_placements((ep_axes, tp, None), mesh)
+    sc = _scales(p, cfg)
+    s_in = shd.pspec_to_placements((ep_axes, tp), mesh)
+    s_out = shd.pspec_to_placements((ep_axes, None), mesh)
+    El = E // shd.mesh_axis_size(mesh, ep_axes)
+    ep_dims = [names.index(a) for a in ep_axes]
+    h = SH._to(h, mesh, xp)
+    args = [SH._to(p["router"], mesh, rp),
+            SH._to(p["w_gate"], mesh, w_in), SH._to(p["w_up"], mesh, w_in),
+            SH._to(p["w_down"], mesh, w_out)]
+    scp = []
+    if sc:
+        scp = [s_in, s_in, s_out]
+        args += [SH._to(s, mesh, pl) for s, pl in zip(sc, scp)]
+
+    def local_fn(hl, router, wg, wu, wd, *scales):
+        hg = SH.all_gather(hl, 0, mesh, ep_dims)
+        hf = hg.reshape(-1, d)
+        topw, topi, aux = _route(hf, router, k)
+        e_lo = _linear_index(ep_axes, mesh) * El
+        y = _expert_compute(hf, topw, topi, wg, wu, wd, cfg.act,
+                            cfg.capacity_factor, scales or None, e_lo, El, E)
+        if tp is not None and wg.shape[-1] != cfg.moe_d_ff:
+            y = SH.all_reduce(y, "sum", mesh, [names.index(tp)])
+        y = y.reshape(hg.shape)
+        return SH.reduce_scatter(y, 0, mesh, ep_dims), aux
+
+    return SH.local_map(local_fn, [xp, rp], [xp, rp, w_in, w_in, w_out,
+                                             *scp], mesh)(h, *args)
 
 
 def quantize_expert_weights(moe_params: dict) -> dict:

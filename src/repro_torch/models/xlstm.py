@@ -10,8 +10,10 @@ three-operand einsums are written as two products each, so no
 
 sLSTM is sequential: a Python loop over time with per-head block-diagonal
 recurrent weights, exponential gating and the same m stabilizer; its cache
-is (c, n, m, h_prev).  The reference's ``shard_map`` branch of
-``slstm_fwd`` belongs to the mesh work (ROADMAP Queue 1 item 11).
+is (c, n, m, h_prev).  Under a mesh the whole recurrence runs as one
+batch-parallel ``local_map`` region (``sharded.slstm``), the reference's
+``shard_map`` branch of ``slstm_fwd``: the recurrent weights' gradient is
+reduced once at the region's boundary, not once a timestep.
 
 Neither has a kernel of the reference's: both are plain torch.  Decode
 steps put their new state into the cache dict they are given and return
@@ -22,8 +24,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import trace
+from repro_torch.models import sharded as SH
 from repro_torch.models.layers import _gelu, group_norm_heads, rms_norm
 from repro_torch.models.params import Spec
+from repro_torch.sharding import gather, is_dtensor, shard, split_heads
 
 CHUNK = 256
 PROJ = 2  # mLSTM up-projection factor
@@ -69,18 +74,19 @@ def mlstm_cache_spec(cfg, B):
 def _heads(xp, w):
     """xp (B,S,di) @ w (di, H, dh) -> (B,S,H,dh)."""
     di, H, dh = w.shape
-    return (xp @ w.reshape(di, H * dh)).reshape(*xp.shape[:2], H, dh)
+    return split_heads(xp @ gather(w).reshape(di, H * dh), H, dh)
 
 
 def _mlstm_qkvif(p, x, cfg):
     di, H, dh = _mdims(cfg)
     h = rms_norm(x, p["ln"], cfg.norm_eps)
-    up = h @ p["w_up"]
+    up = h @ gather(p["w_up"])
     xp, z = up[..., :di], up[..., di:]
     q = _heads(xp, p["wq"]) * (dh ** -0.5)
     k = _heads(xp, p["wk"])
     v = _heads(xp, p["wv"])
-    gates = (xp @ p["w_if"]).float() + p["b_if"]
+    q, k, v = (shard(t, "batch", "seq", "heads", None) for t in (q, k, v))
+    gates = (xp @ gather(p["w_if"])).float() + gather(p["b_if"])
     ig, fg = gates[..., :H], gates[..., H:]  # (B,S,H) log-space pre-acts
     logf = -F.softplus(-fg)  # log sigmoid(f)
     return xp, z, q, k, v, ig, logf
@@ -151,19 +157,19 @@ def mlstm_fwd(p, x, cfg, *, want_cache=False):
     xp, z, q, k, v, ig, logf = _mlstm_qkvif(p, x, cfg)
     y, (C, n, m) = mlstm_chunked(q, k, v, ig, logf, chunk=min(CHUNK, S))
     y = group_norm_heads(y, p["out_gn"], cfg.norm_eps)
-    y = y.reshape(B, S, di) * F.silu(z)
-    out = y @ p["w_down"]
+    # placed as z explicitly, so the gradient that comes back through the
+    # product is gathered before the head split's backward
+    y = shard(y.reshape(B, S, di), "batch", "seq", "inner") * F.silu(z)
+    out = shard(y @ gather(p["w_down"]), "batch", "seq", "embed")
     return out, ({"C": C, "n": n, "m": m} if want_cache else None)
 
 
-def mlstm_step(p, x, cfg, cache):
-    """x: (B,1,d); returns (out, the cache dict holding the new state)."""
-    B = x.shape[0]
-    di = PROJ * cfg.d_model
-    xp, z, q, k, v, ig, logf = _mlstm_qkvif(p, x, cfg)
+def _mlstm_update(C, n, m, q, k, v, ig, logf):
+    """One recurrent step: state C (B,H,K,V), n (B,H,K), m (B,H) and the
+    token's q/k/v (B,1,H,D), gates (B,1,H) -> (C, n, m, y (B,H,D))."""
     qf, kf, vf = (t[:, 0].float() for t in (q, k, v))      # (B,H,D)
     ig, logf = ig[:, 0], logf[:, 0]                         # (B,H)
-    C, n, m = cache["C"].float(), cache["n"], cache["m"]
+    C = C.float()
     m_new = torch.maximum(logf + m, ig)
     fw = torch.exp(logf + m - m_new)
     iw = torch.exp(ig - m_new)
@@ -173,10 +179,34 @@ def mlstm_step(p, x, cfg, cache):
     denom = torch.maximum(torch.einsum("bhd,bhd->bh", n, qf).abs(),
                           torch.exp(-m_new))
     y = torch.einsum("bhd,bhdk->bhk", qf, C) / denom[..., None]
+    return C, n, m_new, y
+
+
+def mlstm_step(p, x, cfg, cache):
+    """x: (B,1,d); returns (out, the cache dict holding the new state).
+    Under a mesh the state update runs on each rank's batch and heads
+    (``sharded.region``)."""
+    B = x.shape[0]
+    di = PROJ * cfg.d_model
+    _, H, dh = _mdims(cfg)
+    xp, z, q, k, v, ig, logf = _mlstm_qkvif(p, x, cfg)
+    args = (cache["C"], cache["n"], cache["m"], q, k, v, ig, logf)
+    if is_dtensor(cache["C"]):
+        bh = ("cache_batch", "ssm_heads")
+        tok = ("batch", "seq", "ssm_heads")
+        C, n, m, y = SH.region(
+            _mlstm_update, args,
+            (bh + ("head_dim", "state"), bh + ("head_dim",), bh,
+             tok + (None,), tok + (None,), tok + (None,), tok, tok),
+            [((B, H, dh, dh), bh + ("head_dim", "state")),
+             ((B, H, dh), bh + ("head_dim",)), ((B, H), bh),
+             ((B, H, dh), bh + (None,))])
+    else:
+        C, n, m, y = _mlstm_update(*args)
     y = group_norm_heads(y[:, None].to(x.dtype), p["out_gn"], cfg.norm_eps)
-    y = y.reshape(B, 1, di) * F.silu(z)
-    cache["C"], cache["n"], cache["m"] = C, n, m_new
-    return y @ p["w_down"], cache
+    y = shard(y.reshape(B, 1, di), "batch", "seq", "inner") * F.silu(z)
+    cache["C"], cache["n"], cache["m"] = C, n, m
+    return y @ gather(p["w_down"]), cache
 
 
 # ---------------------------------------------------------------------------
@@ -226,7 +256,12 @@ def _slstm_cell(r_gates, xg, state, H, dh):
 
 def _slstm_scan(xg, r_gates, H, dh):
     """The sequential recurrence over time. xg: (B,S,4d) f32 pre-acts.
-    Returns ((c, n, m, h) at the last step, hs (S,B,H,dh))."""
+    Returns ((c, n, m, h) at the last step, hs (S,B,H,dh)).  Traced on
+    meta tensors (the mesh dry run), one step stands for all S
+    (``_TracedScan``)."""
+    if trace.tracing_meta(xg.device):
+        *st, hs = _TracedScan.apply(xg, r_gates, H, dh)
+        return tuple(st), hs
     B = xg.shape[0]
     z0 = torch.zeros((B, H, dh), dtype=torch.float32, device=xg.device)
     st = (z0, z0, torch.full_like(z0, -1e30), z0)
@@ -237,9 +272,61 @@ def _slstm_scan(xg, r_gates, H, dh):
     return st, torch.stack(hs)
 
 
+def _scan_state(B, H, dh, device):
+    z0 = torch.zeros((B, H, dh), dtype=torch.float32, device=device)
+    return (z0, z0, torch.full_like(z0, -1e30), z0)
+
+
+class _TracedScan(torch.autograd.Function):
+    """The sLSTM scan as the dry run traces it on meta tensors: one step,
+    its operators counted S times (``trace.repeated``); the hidden states
+    allocated whole, and the tensors autograd saves a step allocated S
+    times over and saved for backward, so the traced peak holds what the
+    real scan holds (and remat drops it as it drops the real ones).  The
+    backward runs one step's gradient, counted S times, after a recompute
+    counted none."""
+
+    @staticmethod
+    def forward(ctx, xg, r_gates, H, dh):
+        from torch.autograd.graph import saved_tensors_hooks
+        B, S = xg.shape[:2]
+        per_step = [0]
+
+        def pack(t):
+            per_step[0] += t.numel() * t.element_size()
+            return t
+        with torch.enable_grad(), saved_tensors_hooks(pack, lambda t: t), \
+                trace.repeated(S):
+            st = _slstm_cell(r_gates.detach().requires_grad_(),
+                             xg[:, 0].detach().requires_grad_(),
+                             _scan_state(B, H, dh, xg.device), H, dh)
+        held = torch.empty((S * per_step[0],), dtype=torch.uint8,
+                           device=xg.device)
+        ctx.save_for_backward(xg, r_gates, held)
+        ctx.H, ctx.dh = H, dh
+        hs = torch.empty((S, B, H, dh), dtype=torch.float32,
+                         device=xg.device)
+        return (*(t.detach() for t in st), hs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        xg, r_gates, _ = ctx.saved_tensors
+        B, S = xg.shape[:2]
+        with torch.enable_grad():
+            xs = xg[:, 0].detach().requires_grad_()
+            r = r_gates.detach().requires_grad_()
+            with trace.repeated(0):
+                h = _slstm_cell(r, xs, _scan_state(B, ctx.H, ctx.dh,
+                                                   xg.device),
+                                ctx.H, ctx.dh)[3]
+            with trace.repeated(S):
+                _, gr = torch.autograd.grad(h, (xs, r), grads[4][0])
+        return torch.empty_like(xg), gr, None, None
+
+
 def _gates_in(p, x, cfg):
-    return (rms_norm(x, p["ln"], cfg.norm_eps) @ p["w_gates"]).float() + \
-        p["b_gates"]
+    return (rms_norm(x, p["ln"], cfg.norm_eps) @ gather(p["w_gates"])
+            ).float() + gather(p["b_gates"])
 
 
 def _slstm_out(p, x, h, cfg):
@@ -248,16 +335,20 @@ def _slstm_out(p, x, h, cfg):
     B, S = h.shape[:2]
     y = group_norm_heads(h.to(x.dtype), p["out_gn"], cfg.norm_eps)
     y = y.reshape(B, S, cfg.d_model)
-    up = rms_norm(x + y, p["ffn_ln"], cfg.norm_eps) @ p["ffn_up"]
+    up = rms_norm(x + y, p["ffn_ln"], cfg.norm_eps) @ gather(p["ffn_up"])
     half = up.shape[-1] // 2
-    return y + (_gelu(up[..., :half]) * up[..., half:]) @ p["ffn_down"]
+    return y + (_gelu(up[..., :half]) * up[..., half:]) @ \
+        gather(p["ffn_down"])
 
 
 def slstm_fwd(p, x, cfg, *, want_cache=False):
     H = cfg.n_heads
     dh = cfg.d_model // H
-    (c, n, m, hp), hs = _slstm_scan(_gates_in(p, x, cfg), p["r_gates"], H,
-                                    dh)
+    xg = _gates_in(p, x, cfg)
+    if is_dtensor(xg):
+        (c, n, m, hp), hs = SH.slstm(_slstm_scan, xg, p["r_gates"], H, dh)
+    else:
+        (c, n, m, hp), hs = _slstm_scan(xg, p["r_gates"], H, dh)
     out = _slstm_out(p, x, hs.transpose(0, 1), cfg)
     return out, ({"c": c, "n": n, "m": m, "hp": hp} if want_cache else None)
 
@@ -267,7 +358,11 @@ def slstm_step(p, x, cfg, cache):
     H = cfg.n_heads
     dh = cfg.d_model // H
     st = (cache["c"], cache["n"], cache["m"], cache["hp"])
-    c, n, m, h = _slstm_cell(p["r_gates"], _gates_in(p, x, cfg)[:, 0], st,
-                             H, dh)
+    xg = _gates_in(p, x, cfg)[:, 0]
+    if is_dtensor(cache["c"]):
+        c, n, m, h = SH.slstm_step(_slstm_cell, gather(p["r_gates"]), xg, st,
+                                   dh)
+    else:
+        c, n, m, h = _slstm_cell(p["r_gates"], xg, st, H, dh)
     cache["c"], cache["n"], cache["m"], cache["hp"] = c, n, m, h
     return _slstm_out(p, x, h[:, None], cfg), cache

@@ -22,8 +22,13 @@ Differences by design: adafactor factors a leaf by the port's own leaf
 shape.  The reference's layer-stacked leaves are one dimension higher
 (a layer norm's (L, d) stack is factored there, a (d,) leaf here keeps a
 full second moment); adamw's elementwise math is the same either way.
-``state_specs`` feeds the reference's dry-run and ports with the mesh
-tooling (ROADMAP Queue 1 item 11).
+
+Under a mesh the parameters, gradients and state are DTensors of the same
+placements (``state_specs``: the state shards like its parameter); the
+global norm's sum of squares is reduced over every shard before the clip,
+and adafactor's row and column means over a split dim are reduced by
+DTensor, so the update is the unsharded one.  int8 (``adamw8``) state is
+quantized in blocks of the whole leaf: a DTensor leaf is gathered for it.
 """
 from __future__ import annotations
 
@@ -52,9 +57,18 @@ def named_leaves(params) -> dict:
     return dict(params)
 
 
+def _replicated(x):
+    """A 0-d DTensor (a partial sum of shards) reduced and made plain;
+    anything else as it is."""
+    from repro_torch.sharding import full_tensor
+    return full_tensor(x)
+
+
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf of a dict, in fp32."""
-    leaves = [torch.sum(torch.square(x.float())) for x in tree.values()]
+    """sqrt of the sum of squares of every leaf of a dict, in fp32; a
+    DTensor leaf's sum is reduced over all its shards first."""
+    leaves = [_replicated(torch.sum(torch.square(x.float())))
+              for x in tree.values()]
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
@@ -81,6 +95,37 @@ def _scaled(g, scale):
     return (g.float() * scale).to(g.dtype).float()
 
 
+def _full(x):
+    """x whole: a DTensor gathered, else x."""
+    from repro_torch.sharding import full_tensor
+    return full_tensor(x)
+
+
+def _assign(p, value):
+    """p = value in place; a whole ``value`` into a DTensor ``p`` is cut
+    to p's shard."""
+    from repro_torch.sharding import is_dtensor
+    if is_dtensor(p) and not is_dtensor(value):
+        from torch.distributed.tensor import distribute_tensor
+        value = distribute_tensor(value, p.device_mesh, p.placements)
+    p.copy_(value)
+
+
+def _zeros_dropping(p, drop: int, shape):
+    """fp32 zeros of ``shape``: p's shape without dim ``drop``; for a
+    DTensor p, a DTensor with p's placements on the dims that remain."""
+    from repro_torch.sharding import is_dtensor
+    if not is_dtensor(p):
+        return torch.zeros(shape, dtype=torch.float32, device=p.device)
+    from torch.distributed.tensor import Replicate, Shard, zeros
+    drop %= p.dim()
+    pl = [Replicate() if (q.is_shard() and q.dim == drop) else
+          Shard(q.dim - (q.dim > drop)) if q.is_shard() else q
+          for q in p.placements]
+    return zeros(shape, dtype=torch.float32, device_mesh=p.device_mesh,
+                 placements=pl)
+
+
 def _f32(v) -> torch.Tensor:
     return torch.as_tensor(v, dtype=torch.float32)
 
@@ -94,9 +139,10 @@ def adamw(lr: Callable, *, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
         leaves = named_leaves(params)
         def z(p):
             if int8_state:
-                return zeros_like_q(p)
-            return torch.zeros(p.shape, dtype=torch.float32,
-                               device=p.device)
+                return zeros_like_q(_full(p))
+            # a DTensor parameter's state is a DTensor of its placements
+            return torch.zeros_like(p, dtype=torch.float32,
+                                    memory_format=torch.contiguous_format)
         return {"m": {k: z(p) for k, p in leaves.items()},
                 "v": {k: z(p) for k, p in leaves.items()}}
 
@@ -115,13 +161,15 @@ def adamw(lr: Callable, *, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
                 quant = isinstance(m, QTensor)
                 mf = dequantize(m) if quant else m
                 vf = dequantize(v) if quant else v
+                # int8 blocks span the whole leaf: a DTensor's is gathered
+                g = _full(g) if quant else g
                 mf.mul_(b1).add_(g * (1 - b1))
                 vf.mul_(b2).add_((g * (1 - b2)).mul_(g))
                 del g
                 upd = (mf / c1).div_(torch.sqrt(vf / c2).add_(eps))
-                pf = p.float()
+                pf = _full(p).float() if quant else p.float()
                 upd.add_(weight_decay * pf)
-                p.copy_(pf - upd.mul_(lr_f))   # cast to p's dtype
+                _assign(p, pf - upd.mul_(lr_f))   # cast to p's dtype
                 del upd, pf
                 if quant:
                     state["m"][name], state["v"][name] = quantize(mf), \
@@ -141,12 +189,12 @@ def adafactor(lr: Callable, *, decay=0.99, eps=1e-30, clip=1.0,
 
     def init(params):
         def z(p):
-            zeros = lambda s: torch.zeros(s, dtype=torch.float32,  # noqa: E731
-                                          device=p.device)
             if p.dim() >= 2:
-                return {"r": zeros(p.shape[:-1]),                  # row sums
-                        "c": zeros(p.shape[:-2] + p.shape[-1:])}
-            return {"v": zeros(p.shape)}
+                return {"r": _zeros_dropping(p, -1, p.shape[:-1]),  # rows
+                        "c": _zeros_dropping(p, -2,
+                                             p.shape[:-2] + p.shape[-1:])}
+            return {"v": torch.zeros_like(
+                p, dtype=torch.float32, memory_format=torch.contiguous_format)}
         return {"f": {k: z(p) for k, p in named_leaves(params).items()}}
 
     def update(grads, state, params, step):
@@ -183,6 +231,36 @@ def adafactor(lr: Callable, *, decay=0.99, eps=1e-30, clip=1.0,
         return params, state, {"grad_norm": gn, "lr": lr_t}
 
     return Optimizer("adafactor", init, update)
+
+
+def state_specs(opt: Optimizer, param_specs):
+    """Spec tree of the optimizer state, keyed as the state is: by each
+    trainable leaf's dotted name (``blocks.0.attn.wq``).  State leaves
+    shard exactly like their parameter (ZeRO): the same logical axes,
+    reduced for adafactor's factored moments.  int8 leaves (int8 experts)
+    take no gradient and have no state."""
+    from repro_torch.models.params import Spec
+    from repro_torch.sharding import spec_leaves
+
+    leaves = {k: s for k, s in spec_leaves(param_specs).items()
+              if s.dtype is None or s.dtype.is_floating_point}
+    if opt.name in ("adamw", "adamw8"):
+        f32 = {k: Spec(s.shape, s.axes, "zeros", torch.float32)
+               for k, s in leaves.items()}
+        return {"m": f32, "v": dict(f32)}
+    if opt.name == "adafactor":
+        def fact(s):
+            if len(s.shape) >= 2:
+                return {
+                    "r": Spec(s.shape[:-1], s.axes[:-1], "zeros",
+                              torch.float32),
+                    "c": Spec(s.shape[:-2] + s.shape[-1:],
+                              s.axes[:-2] + s.axes[-1:], "zeros",
+                              torch.float32),
+                }
+            return {"v": Spec(s.shape, s.axes, "zeros", torch.float32)}
+        return {"f": {k: fact(s) for k, s in leaves.items()}}
+    raise ValueError(opt.name)
 
 
 def for_config(cfg, lr_fn=None) -> Optimizer:
