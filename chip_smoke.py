@@ -25,7 +25,14 @@ Phases, each printing its lines; any failure exits non-zero:
    first two indices swapped); then the kernel's (with the path it took),
    the plain version's and ``torch.topk(q @ g.T)``'s device times at
    N = 262144, Q in {1, Q_S, 16, 256} (from a profiler trace) beside the
-   card's bound for the same work;
+   card's bound for the same work; then any k and D at N = 262144: k in
+   {64, 65, 100, 1000, N + 3} (``ROUND_KS``: one round of the tiled path
+   finds 64) at Q in {1, 16} and D in {768, 2048} (``WIDE_DS``) at k in
+   {1, 100}, each held against the plain version (every query's rows
+   distinct), the first 64 entries of each k > 64 call equal to the k =
+   64 call's, planted faults rejected at k = 100 (also entry 64 repeating
+   entry 63, a row repeated across two rounds), and each call's rounds
+   (its launches) and device time (CUDA events) beside the bound;
 4. rescore kernel vs plain: the cell-rescore kernel against its plain
    version over the ragged cells of one 262,144-row shard (pad rows
    poisoned, so a read of one shows), at Q in {1, 16, 256}, c in
@@ -42,6 +49,11 @@ Phases, each printing its lines; any failure exits non-zero:
    k = 1), with the path ``plan()`` took and the kernels launched a call
    (from a trace: one, on the fused path), beside the plain version's,
    an empty kernel's on the same grid (the latency floor) and the bound;
+   then on the same cells k in {65, 100}, and on the same cells at D = 768
+   k in {1, 100}, at Q in {1, 16} with c = 8, as phase 3's rounds; then
+   the cipher's keystream made on the card: bit-identical to the CPU's
+   for 2^20 + 3 words (a flipped bit caught), and the wall time to make
+   one 262,144-row shard's keystream and to encrypt and decrypt the shard;
 5. flash-attention kernel vs plain: in fp32 and bf16, on the CPU tests'
    shapes (GQA, MQA, bidirectional, window 128, S = 384, 192/128 head
    dims, D = 80, Sq < Sk), the kernel's edges (D = 240 with window 1024,
@@ -78,11 +90,15 @@ Phases, each printing its lines; any failure exits non-zero:
    random unit distractors (512 MiB of fp32 templates), 30 frames with the
    live hot-swap; then ``run_fleet`` for 3 s of offered traffic; and how
    many gallery-match calls had each query count Q, and which path each
-   took;
+   took; in each dtype, one ``match`` at k = 100 (``RANKED_K``: two
+   rounds on each shard) of a served frame over the watchlist, its labels
+   equal to the plain version's;
 9. ANN main path: one such watchlist, indexed once (1024 cells), served by
    ``run_biometric(match_mode="ann", nprobe=8)`` once per match dtype; the
    served labels are held against the plain versions run on the kernels'
-   own probe tables;
+   own probe tables; then in each dtype the 30 served frames matched at
+   ``nprobe=128`` (``WIDE_NPROBE``: the coarse scan runs two rounds), held
+   the same way;
 10. LM main path: ``run_lm`` serving full-width ``zamba2-2.7b`` and then
    ``tinyllama-1.1b`` (weights drawn on the card from a seeded generator),
    batch 8, prompt 2048, 32 generated tokens, in bf16 and then in fp32;
@@ -160,7 +176,11 @@ Phases, each printing its lines; any failure exits non-zero:
    sharded and unsharded run counted alone (launch counts set to 0 just
    before it), each count equal to the launches a profiler trace of that
    run saw and each sharded run's to its unsharded run's; both wall
-   times printed (their difference is DTensor's host cost).
+   times printed (their difference is DTensor's host cost);
+14. the port's examples, each a process of its own on the card (its
+   default): ``quickstart_torch.py``, ``serve_biometric_torch.py`` and
+   ``arch_smoke_all_torch.py`` must exit 0 with their OK lines, and the
+   flash kernel must have launched in the last (``EXAMPLES_ON_CARD``).
 Every profiler trace that times kernels or counts their launches is
 bracketed by two marker kernels and counts only the launches between them;
 a timing takes two whole traces in a row that hold the same launches and
@@ -182,6 +202,7 @@ import gc
 import io
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -277,6 +298,12 @@ LM_REL = 1e-4
 LM_BF16_RATIO = 1.5
 CELLS = 1024            # cells of one N_BIG shard at the index's sqrt(N)
 NPROBE = 8              # the serving path's probes per query
+# k above the kernels' MAX_K (one round of the tiled path finds 64; k > N
+# ends in sentinels) and rows wider than their MAX_D (staged in chunks)
+ROUND_KS = (64, 65, 100, 1000, N_BIG + 3)
+WIDE_DS = (768, 2048)
+RANKED_K = 100          # the ranked candidate list phases 8 and 9 ask for
+WIDE_NPROBE = 128       # the ANN probes past MAX_K that phase 9 asks for
 DEV = "cuda"
 T_START = time.perf_counter()
 
@@ -335,6 +362,14 @@ def compare(torch, gm, dtype, Q, N, k, gen, D=128, misalign=False,
         scale = scale[:N] if scale is not None else None
     s, i = run_kernel(gm, q, g, scale, k)
     torch.cuda.synchronize()
+    return check_match(torch, gm, dtype, q, g, scale, k, s, i, fault)
+
+
+def check_match(torch, gm, dtype, q, g, scale, k, s, i, fault=None):
+    """The kernel's (scores, indices) ``s``, ``i`` of queries ``q`` over
+    gallery ``g`` held against the plain version's; returns the max abs
+    score error.  Every query's indices must be distinct rows."""
+    Q, N = q.shape[0], g.shape[0]
     if fault is not None:
         s, i = fault(s.clone(), i.clone())
     ps, pi = run_plain(torch, gm, q, g, scale, k)
@@ -348,6 +383,10 @@ def compare(torch, gm, dtype, Q, N, k, gen, D=128, misalign=False,
     err = float((s - ps).abs().max())
     if not err <= TOL:
         raise AssertionError(f"{dtype} Q={Q} N={N} k={k}: score error {err}")
+    srt = i.sort(dim=1).values
+    if bool((srt[:, 1:] == srt[:, :-1]).any()) or bool((srt < 0).any()):
+        raise AssertionError(f"{dtype} Q={Q} N={N} k={k}: a row repeated "
+                             "or missing")
     # an index may differ only for a row the plain version scores within
     # TOL of its own pick (a tie within the tolerance)
     qc = q.to(torch.bfloat16) if dtype == "bf16" else q
@@ -546,7 +585,7 @@ def check_faults(torch, gm, gen):
 
 def block_of(gm, dtype, N, row):
     """The block of the last launch's grid that scores ``row``."""
-    path, S = gm.last_plan
+    path, S, _ = gm.last_plan
     if path == "small":
         item = {"fp32": 4, "bf16": 2, "int8": 1}[dtype]
         group = row // (gm._GROUP_BYTES // (gm.SMALL_D * item))
@@ -599,6 +638,93 @@ def check_repeatable(torch, gm, gen):
               f"k=1 and at Q=1 N={CELLS} k={NPROBE} ({gm.last_plan[0]} path)")
 
 
+def fault_round_edge(s, i):
+    """A planted fault: each query's entry MAX_K (the second round's first)
+    replaced by the first round's last, a row repeated across the rounds."""
+    s[:, 64], i[:, 64] = s[:, 63], i[:, 63]
+    return s, i
+
+
+def event_ms(torch, fn):
+    """(result, ms) of one call of ``fn``, from CUDA events around it: the
+    device's time from the first launch to the last one's end, the host's
+    enqueueing gaps included (a call of many rounds enqueues them from C,
+    far faster than the card runs them)."""
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    res = fn()
+    e1.record()
+    e1.synchronize()
+    return res, e0.elapsed_time(e1)
+
+
+def check_rounds(torch, gm, gen):
+    """k above MAX_K and rows wider than MAX_D at N = N_BIG, in each dtype:
+    every ROUND_KS k at Q in {1, 16} and every WIDE_DS width at k in
+    {1, 100}, held against the plain version; each k > MAX_K call's first
+    MAX_K entries equal to the k = MAX_K call's; a planted fault rejected
+    at the round edge and at the top; and each call's rounds (launches)
+    and device time (CUDA events around a second call, the first for
+    k > N) beside the bound.  Returns {dtype: [reading, ...]}."""
+    out = {}
+    for dtype in DTYPES:
+        rows = []
+        for D, ks in ((128, ROUND_KS), *((d, (1, 100)) for d in WIDE_DS)):
+            g, scale = gallery(torch, gm, dtype, N_BIG, D, gen)
+            for Q in (1, 16):
+                q = torch.randn((Q, D), generator=gen, device=DEV) * 3.0
+                first = None
+                for k in ks:
+                    gm.launches = 0
+                    (s, i), ms = event_ms(torch, lambda: run_kernel(
+                        gm, q, g, scale, k))
+                    launches, plan = gm.launches, gm.last_plan
+                    err = check_match(torch, gm, dtype, q, g, scale, k, s, i)
+                    if k <= N_BIG:
+                        _, ms = event_ms(torch, lambda: run_kernel(
+                            gm, q, g, scale, k))
+                    if k == gm.MAX_K:
+                        first = (s, i)
+                    elif k > gm.MAX_K and D == 128 and not (
+                            torch.equal(s[:, :gm.MAX_K], first[0])
+                            and torch.equal(i[:, :gm.MAX_K], first[1])):
+                        raise AssertionError(
+                            f"{dtype} Q={Q} k={k}: the first {gm.MAX_K} "
+                            f"entries differ from the k={gm.MAX_K} call's")
+                    if launches != gm.rounds(min(k, N_BIG)):
+                        raise AssertionError(f"{dtype} Q={Q} D={D} k={k}: "
+                                             f"{launches} launches")
+                    if k == 100 and D == 128 and Q == 16:
+                        for fault in (fault_top_score, fault_swap,
+                                      fault_round_edge):
+                            try:
+                                check_match(torch, gm, dtype, q, g, scale, k,
+                                            s, i, fault)
+                            except AssertionError:
+                                continue
+                            raise AssertionError(
+                                f"{dtype} k={k}: the check passed the "
+                                f"planted fault {fault.__name__}")
+                    bms, by = bound(dtype, Q, N_BIG, D, min(k, N_BIG))
+                    rows.append({"Q": Q, "D": D, "k": k, "path": plan[0],
+                                 "rounds": launches, "max_abs_err": err,
+                                 "ms": ms, "bound_ms": bms, "bound_by": by})
+                    print(f"[kernel-rounds] {dtype} Q={Q:2d} N={N_BIG} D={D} "
+                          f"k={k}: == plain (max abs err {err:.3g}), "
+                          f"{plan[0]} path, {launches} rounds, "
+                          f"ms={ms:.4f} (CUDA events) bound_ms={bms:.4f} "
+                          f"({by})")
+            del g, scale
+        out[dtype] = rows
+        print(f"[kernel-rounds] {dtype}: the first {gm.MAX_K} entries of "
+              f"every k > {gm.MAX_K} call equal the k={gm.MAX_K} call's; "
+              "the check rejects the planted faults at k=100 (top score "
+              f"x{PLANT}, first two indices swapped, entry {gm.MAX_K} "
+              f"repeating entry {gm.MAX_K - 1})")
+    return out
+
+
 def phase_kernel(torch, gm):
     gen = torch.Generator(device=DEV).manual_seed(1234)
     QS = gm.SMALL_Q
@@ -628,6 +754,7 @@ def phase_kernel(torch, gm):
     check_ties(torch, gm, gen)
     check_repeatable(torch, gm, gen)
     check_faults(torch, gm, gen)
+    rounds = check_rounds(torch, gm, gen)
     timings = {}
     D = 128
     for dtype in DTYPES:
@@ -652,7 +779,7 @@ def phase_kernel(torch, gm):
                       f"{path[0]} path, {path[1]} blocks) plain_ms={pms:.4f} "
                       f"library_ms={lib} bound_ms={bms:.4f} ({by})")
         del shards
-    return errs, timings
+    return errs, timings, rounds
 
 
 def shard_cells(torch, gm, dtype, K, D, gen, mean_len=256, misalign=False,
@@ -697,9 +824,10 @@ def probe_table(torch, Q, c, K, gen):
 def compare_rescore(torch, A, q, cells, scale, ids, lens, L, k, strict=False,
                     fault=None):
     """Rescore kernel vs plain on one input; returns the max abs score
-    error.  A position may differ from the plain version's only where the
-    plain version scores the kernel's pick within TOL of its own, and must
-    be a valid row of a probed cell; ``strict`` asks for equal positions
+    error.  Every query's positions must be distinct.  A position may
+    differ from the plain version's only where the plain version scores
+    the kernel's pick within TOL of its own, and must be a valid row of a
+    probed cell; ``strict`` asks for equal positions
     (inputs with exact ties).  ``fault`` plants a fault in the kernel's
     (scores, positions) before they are checked (the check must then
     fail)."""
@@ -721,6 +849,10 @@ def compare_rescore(torch, A, q, cells, scale, ids, lens, L, k, strict=False,
     if not err <= TOL:
         raise AssertionError(f"{what}: score error {err}")
     live = p >= 0
+    srt = torch.where(live, p, -1 - torch.arange(
+        p.shape[1], device=p.device)).sort(dim=1).values
+    if bool((srt[:, 1:] == srt[:, :-1]).any()):
+        raise AssertionError(f"{what}: a position repeated")
     cell, row = (p // L).long(), (p % L).long()
     probed = (ids.long()[:, :, None] == cell[:, None, :]).any(dim=1)
     valid = probed & (row < lens.long()[cell.clamp(min=0)])
@@ -822,7 +954,7 @@ def rescore_edges(torch, gm, A, dtype, gen, D=128):
     k = 1 and 5; then 40 probes a query, so the winning slots lie past a
     warp's 32 lanes, at k = 5 and k = MAX_K."""
     R = A.plan(1, 1, 1, D, {"fp32": 4, "bf16": 2, "int8": 1}[dtype], True,
-               132)[2]
+               132, 1)[2]
     K = 64
     out = []
     for L, step in ((R, R // 2), (2 * R, R), (8 * R, R)):
@@ -842,10 +974,59 @@ def rescore_edges(torch, gm, A, dtype, gen, D=128):
     return out
 
 
+def rescore_rounds(torch, gm, A, dtype, cells, scale, lens, L, gen):
+    """The rescore above MAX_K and at rows wider than MAX_D, on the
+    serving shard's cells (c = NPROBE) and on the same cells at D = 768:
+    held against the plain version, a planted fault rejected at k = 100,
+    each call's rounds (launches) and device time (CUDA events around a
+    second call) beside the bound.  Returns the readings."""
+    rows = []
+    wide = shard_cells(torch, gm, dtype, CELLS, 768, gen)
+    for (xc, xs, xl, xL), D, ks in (((cells, scale, lens, L), 128,
+                                     (65, 100)), (wide, 768, (1, 100))):
+        for Q in (1, 16):
+            q = torch.randn((Q, D), generator=gen, device=DEV) * 3.0
+            ids = probe_table(torch, Q, NPROBE, CELLS, gen)
+            for k in ks:
+                A.launches = 0
+                err = compare_rescore(torch, A, q, xc, xs, ids, xl, xL, k)
+                launches, plan = A.launches, A.last_plan
+                if launches != A.rounds(k):
+                    raise AssertionError(f"rescore {dtype} D={D} k={k}: "
+                                         f"{launches} launches")
+                _, ms = event_ms(torch, lambda: run_rescore(
+                    A, q, xc, xs, ids, xl, xL, k))
+                if k == 100 and D == 128 and Q == 16:
+                    for fault in (fault_top_score, fault_swap,
+                                  fault_round_edge):
+                        try:
+                            compare_rescore(torch, A, q, xc, xs, ids, xl, xL,
+                                            k, fault=fault)
+                        except AssertionError:
+                            continue
+                        raise AssertionError(
+                            f"rescore {dtype} k={k}: the check passed the "
+                            f"planted fault {fault.__name__}")
+                bms, by = work_bound(dtype, *rescore_work(dtype, Q, ids, xl,
+                                                          D, k))
+                rows.append({"Q": Q, "c": NPROBE, "D": D, "k": k,
+                             "path": plan[0], "rounds": launches,
+                             "max_abs_err": err, "ms": ms, "bound_ms": bms,
+                             "bound_by": by})
+                print(f"[rescore-rounds] {dtype} Q={Q:2d} c={NPROBE} D={D} "
+                      f"k={k}: == plain (max abs err {err:.3g}), {plan[0]} "
+                      f"path, {launches} rounds, ms={ms:.4f} (CUDA events) "
+                      f"bound_ms={bms:.6f} ({by})")
+    print(f"[rescore-rounds] {dtype}: the check rejects the planted faults "
+          f"at k=100 (top score x{PLANT}, first two positions swapped, "
+          f"entry {A.MAX_K} repeating entry {A.MAX_K - 1})")
+    return rows
+
+
 def phase_rescore(torch, gm, A):
     gen = torch.Generator(device=DEV).manual_seed(4321)
     D = 128
-    errs, timings = {}, {}
+    errs, timings, rounds = {}, {}, {}
     for dtype in DTYPES:
         err, n, paths = 0.0, 0, {}
 
@@ -951,7 +1132,9 @@ def phase_rescore(torch, gm, A):
               f"call {pcall:.4f}) library_ms=n/a empty_kernel_ms={fms:.4f} "
               f"(same grid) bound_ms={bms:.6f} ({by})")
         del shards, calls
-    return errs, timings
+        rounds[dtype] = rescore_rounds(torch, gm, A, dtype, cells, scale,
+                                       lens, L, gen)
+    return errs, timings, rounds
 
 
 class Recorder:
@@ -985,28 +1168,88 @@ class Recorder:
 def plain_labels(torch, gm, gallery, emb, dtype):
     """Top-1 labels of ``emb`` by the plain version over the gallery's
     prepared shard views on the card, merged as ``match`` merges."""
+    labels, scores = plain_topk(torch, gm, gallery, emb, dtype, 1)
+    return list(labels[:, 0]), torch.from_numpy(scores[:, 0])
+
+
+def plain_topk(torch, gm, gallery, emb, dtype, k):
+    """Top-``k`` (labels (Q, k), scores (Q, k)) of raw embeddings ``emb``
+    by the plain version over the gallery's prepared shard views on the
+    card, merged as ``match`` merges (score descending, then global id)."""
+    import numpy as np
     q = gallery.rotation.protect(emb)
-    best = None
+    scores, gids = [], []
     for s in range(gallery.n_shards):
-        if not len(gallery._shard_ids[s]):
+        ids = gallery._shard_ids[s]
+        if not len(ids):
             continue
         prep = gallery._prepare(s, dtype)
         if dtype == "int8":
             g, scale = prep["q8"], prep["scale"]
         else:
             g, scale = prep["gn_bf16" if dtype == "bf16" else "gn"], None
-        ps, pi = run_plain(torch, gm, q, g, scale, 1)
-        gid = torch.as_tensor(gallery._shard_ids[s], device=DEV)[pi[:, 0]]
-        cand = (ps[:, 0], gid)
-        if best is None:
-            best = cand
-        else:
-            take = (cand[0] > best[0]) | ((cand[0] == best[0])
-                                          & (cand[1] < best[1]))
-            best = (torch.where(take, cand[0], best[0]),
-                    torch.where(take, cand[1], best[1]))
-    labels = [gallery._labels[int(g)] for g in best[1].cpu()]
-    return labels, best[0].cpu()
+        ps, pi = run_plain(torch, gm, q, g, scale, min(k, len(ids)))
+        scores.append(ps.cpu().numpy())
+        gids.append(ids[pi.cpu().numpy()])
+    all_s, all_g = np.concatenate(scores, 1), np.concatenate(gids, 1)
+    top = np.lexsort((all_g, -all_s), axis=1)[:, :k]
+    labels = np.asarray(gallery._labels, object)[
+        np.take_along_axis(all_g, top, axis=1)]
+    return labels, np.take_along_axis(all_s, top, axis=1)
+
+
+def ranked_match(torch, gm, gallery, emb, dtype):
+    """One ``match`` at k = RANKED_K (above MAX_K: rounds on every shard)
+    of one frame's embedding over the served watchlist, its launches
+    counted alone; its labels held against the plain version's.  Returns
+    the launches."""
+    import numpy as np
+    gm.launches = 0
+    labels, scores = gallery.match(emb, k=RANKED_K, dtype=dtype)
+    launches = gm.launches
+    want = sum(1 for ids in gallery._shard_ids if len(ids)) \
+        * gm.rounds(RANKED_K)
+    plain, plain_s = plain_topk(torch, gm, gallery, emb, dtype, RANKED_K)
+    serr = float(np.abs(scores.numpy() - plain_s).max())
+    if labels.shape != (1, RANKED_K) or not np.array_equal(labels, plain) \
+            or not serr <= TOL or launches != want:
+        raise AssertionError(f"{dtype}: the k={RANKED_K} match's labels "
+                             f"differ from the plain version's (score error "
+                             f"{serr}) or it launched {launches} of {want}")
+    print(f"[main] {dtype}: one match at k={RANKED_K} over {len(gallery)} "
+          f"templates: labels == plain {RANKED_K}/{RANKED_K} (max abs "
+          f"score error {serr:.3g}), {launches} launches ({gm.rounds(RANKED_K)}"
+          f" rounds x {gallery.n_shards} shards), first {labels[0, 0]}")
+    return launches
+
+
+def wide_probe_match(torch, gm, A, gallery, emb, dtype):
+    """The ANN match at nprobe = WIDE_NPROBE (above MAX_K: the coarse scan
+    runs rounds) of ``emb``, its launches counted alone, its labels held
+    against the plain versions on the kernels' own probe table.  Returns
+    (coarse, rescore) launches."""
+    with ProbeRecorder(gallery) as probes:
+        gm.launches = A.launches = 0
+        labels, scores = gallery.match(emb, k=1, dtype=dtype, mode="ann",
+                                       nprobe=WIDE_NPROBE)
+        launches = (gm.launches, A.launches)
+    q, ids = probes.ids[0]
+    plain, plain_s = plain_ann(torch, gm, A, gallery, q, ids, dtype)
+    got = list(labels[:, 0])
+    serr = float((scores[:, 0] - plain_s).abs().max())
+    want = (gm.rounds(WIDE_NPROBE), SHARDS)
+    if tuple(ids.shape) != (emb.shape[0], WIDE_NPROBE) or got != plain \
+            or not serr <= TOL or launches != want:
+        raise AssertionError(f"ann {dtype} nprobe={WIDE_NPROBE}: labels "
+                             f"{got} vs plain {plain} (score error {serr}), "
+                             f"launches {launches} of {want}")
+    print(f"[ann] {dtype}: nprobe={WIDE_NPROBE} over {len(gallery)} "
+          f"templates, {emb.shape[0]} queries: labels == plain "
+          f"{len(got)}/{len(got)} on the kernels' own probe table (max abs "
+          f"score error {serr:.3g}), launches gallery_match={launches[0]} "
+          f"({want[0]} rounds) cell_rescore={launches[1]}, scan_fraction="
+          f"{gallery.last_match_stats['scan_fraction']:.6f}")
+    return launches
 
 
 class QHistogram:
@@ -1035,15 +1278,15 @@ class QHistogram:
 
 def phase_main(torch, gm, serve):
     with QHistogram(gm) as hist:
-        launches = run_main(torch, gm, serve)
+        launches, ranked = run_main(torch, gm, serve)
     print(f"[main] gallery-match calls by Q: "
           + ", ".join(f"Q={q}: {n}" for q, n in sorted(hist.by_q.items()))
           + f"; by path: {hist.paths} (small-Q path for Q <= {gm.SMALL_Q})")
-    return launches
+    return launches, ranked
 
 
 def run_main(torch, gm, serve):
-    launches = {}
+    launches, ranked = {}, {}
     for dtype in DTYPES:
         t0 = time.perf_counter()
         with Recorder(serve.WatchlistCartridge) as rec:
@@ -1081,6 +1324,8 @@ def run_main(torch, gm, serve):
               f"lost={rep.lost} launches={launches[dtype]} "
               f"labels==subject {30 - wrong}/30, labels==plain 30/30, "
               f"wall_s={wall:.1f}")
+        ranked[dtype] = ranked_match(torch, gm, rec.gallery,
+                                     rows[0][3].reshape(1, -1), dtype)
     gm.launches = 0
     t0 = time.perf_counter()
     rep = serve.run_fleet(duration_s=3.0, device=DEV)
@@ -1097,7 +1342,7 @@ def run_main(torch, gm, serve):
           f"lost={rep.lost} launches={fleet_launches} conservation holds "
           f"for {len(rep.frontdoor['tenants'])} tenants, "
           f"wall_s={time.perf_counter() - t0:.1f}")
-    return launches
+    return launches, ranked
 
 
 class ProbeRecorder:
@@ -1187,7 +1432,7 @@ def phase_ann(torch, gm, A, serve):
         build_s.append(time.perf_counter() - t0)
 
     gallery.build_ann_index = build_ann_index
-    launches, fractions = {}, {}
+    launches, fractions, wide = {}, {}, {}
     for dtype in DTYPES:
         gallery.match_dtype = dtype
         t0 = time.perf_counter()
@@ -1234,7 +1479,11 @@ def phase_ann(torch, gm, A, serve):
               f"cell_rescore={n_cr}, labels==subject {right}/30, "
               f"labels==plain 30/30, scan_fraction="
               f"{fractions[dtype]:.6f}, wall_s={wall:.1f}")
-    return launches, fractions
+        wide[dtype] = wide_probe_match(
+            torch, gm, A, gallery,
+            torch.stack([r[3] for r in rec.rows]).reshape(len(rec.rows), -1),
+            dtype)
+    return launches, fractions, wide
 
 
 def phase_reference(torch, serve):
@@ -1920,7 +2169,7 @@ def first_fns(cfg):
 def lm_batch(sp, cfg, arch, gen):
     """(tokens, modality inputs) of ``arch``'s served batch."""
     b = sp.make_batch(cfg, LM_PROMPTS.get(arch, LM_PROMPT), LM_BATCH, gen,
-                      device=DEV)
+                      device=DEV, with_labels=False)
     return b.pop("tokens"), b
 
 
@@ -3004,6 +3253,89 @@ def phase_mesh(torch, FA, SSD, serve):
     return local, out
 
 
+def phase_keystream(torch):
+    """The cipher's keystream made on the card (as a CUDA gallery makes
+    it): bit-identical to the one made on the CPU for 2^20 + 3 words, the
+    comparison catching a flipped bit; then the wall time to make the
+    keystream of one N_BIG-row fp32 shard (128 wide) on the card and bring
+    it to the host, and to encrypt and to decrypt that shard with it (the
+    XOR on the host), the decrypted shard equal to the original."""
+    import numpy as np
+    from repro_torch.crypto import templates as T
+    key = T.prng_key(7 ^ 0x5EC2E7)
+    n = (1 << 20) + 3
+    card, cpu = T._keystream(key, n, DEV), T._keystream(key, n, "cpu")
+    if not np.array_equal(card, cpu):
+        raise AssertionError("the keystream made on the card differs from "
+                             "the CPU's")
+    flipped = card.copy()
+    flipped[n // 2] ^= np.uint32(1 << 17)
+    if np.array_equal(flipped, cpu):
+        raise AssertionError("the keystream check passed a flipped bit")
+    x = np.random.default_rng(0).standard_normal((N_BIG, 128),
+                                                 dtype=np.float32)
+    T.encrypt_array(key, x[:8], DEV)               # the first launches
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    _, ks_ms = wall(lambda: T._keystream(key, x.size, DEV))
+    enc, enc_ms = wall(lambda: T.encrypt_array(key, x, DEV))
+    dec, dec_ms = wall(lambda: T.decrypt_array(key, enc, DEV))
+    if not np.array_equal(dec, x):
+        raise AssertionError("a shard encrypted and decrypted on the card "
+                             "is not the shard")
+    out = {"words": x.size, "keystream_ms": ks_ms, "encrypt_ms": enc_ms,
+           "decrypt_ms": dec_ms}
+    print(f"[keystream] made on the card == made on the CPU for {n} words "
+          f"(a flipped bit caught); one {N_BIG} x 128 fp32 shard "
+          f"({x.size} words): keystream to the host {ks_ms:.1f} ms, "
+          f"encrypt {enc_ms:.1f} ms, decrypt {dec_ms:.1f} ms (wall, the "
+          "XOR on the host), decrypted == original")
+    return out
+
+
+# phase 14: the port's examples on the card, each a process of its own,
+# with the line each must end on
+EXAMPLES_ON_CARD = (("quickstart_torch.py", "quickstart OK"),
+                    ("serve_biometric_torch.py", "serve_biometric OK"),
+                    ("arch_smoke_all_torch.py", "arch_smoke_all OK"))
+
+
+def phase_examples(torch):
+    """Run each of EXAMPLES_ON_CARD as a subprocess on the card (its
+    default): each must exit 0 with its OK line, and the flash kernel must
+    have launched in ``arch_smoke_all_torch.py`` (its last line but one).
+    Returns {script: seconds}."""
+    torch.cuda.empty_cache()          # the cached blocks go back to the card
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    out = {}
+    for script, ok in EXAMPLES_ON_CARD:
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, str(ROOT / "examples" / script)],
+                             cwd=ROOT, env=env, capture_output=True,
+                             text=True, timeout=600)
+        out[script] = time.perf_counter() - t0
+        lines = [ln for ln in res.stdout.splitlines() if ok in ln]
+        if res.returncode != 0 or not lines:
+            raise AssertionError(f"{script}: exit {res.returncode}\n"
+                                 f"{res.stdout[-2000:]}\n{res.stderr[-3000:]}")
+        extra = ""
+        if script.startswith("arch_smoke_all"):
+            m = re.search(r"kernel launches: flash_attention=(\d+) "
+                          r"mamba2_ssd=(\d+)", res.stdout)
+            if not m or int(m.group(1)) == 0:
+                raise AssertionError(f"{script}: the flash kernel never "
+                                     f"launched: {res.stdout[-800:]}")
+            extra = f"; flash launches {m.group(1)}, SSD {m.group(2)}"
+        print(f"[examples] {script}: exit 0 in {out[script]:.1f} s: "
+              f"{lines[-1]}{extra}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3026,8 +3358,9 @@ def main() -> int:
     sass, ssd_sass = phase_sass(FA, SSD)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    errs, timings = phase_kernel(torch, gm)
-    r_errs, r_timings = phase_rescore(torch, gm, A)
+    errs, timings, rounds = phase_kernel(torch, gm)
+    r_errs, r_timings, r_rounds = phase_rescore(torch, gm, A)
+    phase_keystream(torch)
     f_errs, f_timings = phase_flash(torch, FA)
     s_errs, s_timings = phase_ssd(torch, SSD)
     # phase 13 right after the kernel phases: after the serving phases 7-9
@@ -3035,8 +3368,8 @@ def main() -> int:
     # most tries, and after the LM phases empty (PERF.md §6, PR 24)
     local, mesh_launches = phase_mesh(torch, FA, SSD, serve)
     phase_reference(torch, serve)
-    launches = phase_main(torch, gm, serve)
-    ann_launches, _ = phase_ann(torch, gm, A, serve)
+    launches, ranked = phase_main(torch, gm, serve)
+    ann_launches, _, wide_probe = phase_ann(torch, gm, A, serve)
     t_lm = time.perf_counter()
     lm_launches = phase_lm(torch, serve, FA, SSD)
     phase_lm_default(torch, serve, FA)
@@ -3046,6 +3379,11 @@ def main() -> int:
     train_launches = phase_train(torch, FA, SSD)
     print(f"[time] phase 12 (training) took "
           f"{time.perf_counter() - t_train:.1f} s; the script "
+          f"{time.perf_counter() - T_START:.1f} s")
+    t_ex = time.perf_counter()
+    phase_examples(torch)
+    print(f"[time] phase 14 (examples) took "
+          f"{time.perf_counter() - t_ex:.1f} s; the script "
           f"{time.perf_counter() - T_START:.1f} s")
 
     kernels = []
@@ -3059,7 +3397,10 @@ def main() -> int:
             "max_abs_err": errs[dtype],
             "ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
             "library_ms": lms, "path": path,
-            "shape": f"Q=1 N={N_BIG} D=128 k=1"})
+            "shape": f"Q=1 N={N_BIG} D=128 k=1",
+            "launches_ranked": ranked[dtype],
+            "launches_wide_probe": wide_probe[dtype][0],
+            "rounds_and_wide": rounds[dtype]})
     for dtype in DTYPES:
         kms, pms, bms, by, kcall, fms, plan = r_timings[dtype]
         kernels.append({
@@ -3071,7 +3412,9 @@ def main() -> int:
             "library_ms": None, "call_ms": kcall, "empty_kernel_ms": fms,
             "path": plan[0], "warps": plan[1], "rows_a_warp": plan[2],
             "passes": plan[3], "blocks": plan[4],
-            "shape": f"Q=1 c={NPROBE} K={CELLS} D=128 k=1"})
+            "shape": f"Q=1 c={NPROBE} K={CELLS} D=128 k=1",
+            "launches_wide_probe": wide_probe[dtype][1],
+            "rounds_and_wide": r_rounds[dtype]})
     for dtype in LM_DTYPES:
         name = f"flash_attention[{dtype}]"
         kms, pms, lms, bms, by = f_timings[(dtype, "mha")]

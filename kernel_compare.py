@@ -3,7 +3,8 @@
 another checkout's, on one GPU, in one process.
 
     python3 kernel_compare.py OTHER_CHECKOUT [--shapes Q:k,...] [--qk N]
-    python3 kernel_compare.py OTHER_CHECKOUT --kernel rescore
+                              [--exact]
+    python3 kernel_compare.py OTHER_CHECKOUT --kernel rescore [--exact]
     python3 kernel_compare.py OTHER_CHECKOUT --kernel ssd
 
 OTHER_CHECKOUT is another checkout of this repository, for example the
@@ -30,6 +31,9 @@ two held to each other on every call of a round (scores within
 ``--kernel ssd``: the Mamba-2 SSD scan at zamba2's serving shape
 (``chip_smoke.SSD_SERVE``, as the model's strided views) in bf16 and fp32,
 y and the final state of the two held to ``chip_smoke``'s SSD bounds.
+
+``--exact`` (gallery, rescore): the two must agree bit for bit, scores
+and indices, as a change that keeps a kernel's arithmetic must.
 
 Prints the card, one line per shape, and a JSON object with every time.
 Exits non-zero without a GPU.
@@ -97,7 +101,12 @@ def in_turns(cs, torch, fn_of, args):
     return times
 
 
-def compare_gallery(cs, torch, _build, other, shapes_arg, qk):
+def same(torch, a, b) -> bool:
+    """Two (scores, indices) results equal bit for bit."""
+    return torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def compare_gallery(cs, torch, _build, other, shapes_arg, qk, exact):
     from repro_torch.kernels import gallery_match as gm
     if qk is not None:
         gm.SMALL_QK = qk
@@ -115,7 +124,7 @@ def compare_gallery(cs, torch, _build, other, shapes_arg, qk):
             a = cs.run_kernel(ogm, q, *shards[0], k)
             b = cs.run_kernel(gm, q, *shards[0], k)
             err = float((a[0] - b[0]).abs().max())
-            if not err <= cs.TOL:
+            if not err <= cs.TOL or (exact and not same(torch, a, b)):
                 raise AssertionError(f"{dtype} Q={Q} k={k}: the two "
                                      f"kernels differ by {err}")
             times = in_turns(cs, torch, lambda name: (
@@ -133,7 +142,7 @@ def compare_gallery(cs, torch, _build, other, shapes_arg, qk):
     return rows
 
 
-def compare_rescore(cs, torch, _build, other):
+def compare_rescore(cs, torch, _build, other, exact):
     from repro_torch.kernels import ann_match as A
     from repro_torch.kernels import gallery_match as gm
     oA = build_both(A, other, _build, "ann_match", "cell_rescore")
@@ -153,7 +162,8 @@ def compare_rescore(cs, torch, _build, other):
                     b = cs.run_rescore(A, *args)
                     err = float((a[0] - b[0]).abs().max())
                     if not (err <= cs.TOL and torch.equal(a[1] < 0,
-                                                          b[1] < 0)):
+                                                          b[1] < 0)) or (
+                            exact and not same(torch, a, b)):
                         raise AssertionError(
                             f"rescore {dtype} Q={Q} k={k}: the two kernels "
                             f"differ (score error {err})")
@@ -214,6 +224,7 @@ def main() -> int:
                     default="gallery")
     ap.add_argument("--shapes", default=None)
     ap.add_argument("--qk", type=int, default=None)
+    ap.add_argument("--exact", action="store_true")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -228,10 +239,10 @@ def main() -> int:
     if args.kernel == "ssd":
         rows = compare_ssd(cs, torch, _build, args.other)
     elif args.kernel == "rescore":
-        rows = compare_rescore(cs, torch, _build, args.other)
+        rows = compare_rescore(cs, torch, _build, args.other, args.exact)
     else:
         rows = compare_gallery(cs, torch, _build, args.other, args.shapes,
-                               args.qk)
+                               args.qk, args.exact)
     print(card)
     print(json.dumps({"compare": rows}))
     return 0

@@ -46,7 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.crypto.templates import (KeyedRotation, decrypt_array,
-                                          encrypt_array)
+                                          encrypt_array, prng_key)
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ann_match as A
 from repro_torch.kernels import ops as K
@@ -78,8 +78,10 @@ def _deficit_alloc(sizes: np.ndarray, n_new: int) -> np.ndarray:
     return alloc
 
 
-def _cipher_key(seed: int) -> int:
-    return seed ^ 0x5EC2E7
+def _cipher_key(seed: int) -> tuple:
+    """The stream cipher's key for ``seed``: the reference's
+    ``jax.random.PRNGKey(seed ^ 0x5EC2E7)``."""
+    return prng_key(seed ^ 0x5EC2E7)
 
 
 def _to_host(tensors):
@@ -146,6 +148,14 @@ class SecureGallery:
         self.tracer = None
 
     # -- enrollment ------------------------------------------------------------
+    def _encrypt(self, x: np.ndarray) -> dict:
+        """``x`` sealed at rest under the store's key; the keystream is
+        made on the store's device, the XOR on the host."""
+        return encrypt_array(self._cipher_key, x, self.device)
+
+    def _decrypt(self, enc: dict) -> np.ndarray:
+        return decrypt_array(self._cipher_key, enc, self.device)
+
     def _tenant_code(self, tenant, create: bool = False) -> int:
         code = self._tenant_codes.get(tenant)
         if code is None:
@@ -209,9 +219,9 @@ class SecureGallery:
 
     def _append_to_shard(self, s: int, prot: np.ndarray, gids: np.ndarray):
         if self._shards[s] is not None:
-            prev = decrypt_array(self._cipher_key, self._shards[s])
+            prev = self._decrypt(self._shards[s])
             prot = np.concatenate([prev, prot], axis=0)
-        self._shards[s] = encrypt_array(self._cipher_key, prot)
+        self._shards[s] = self._encrypt(prot)
         self._shard_ids[s] = np.concatenate([self._shard_ids[s], gids])
         self._prep[s] = {}                         # plaintext view is stale
 
@@ -233,8 +243,7 @@ class SecureGallery:
         out = np.empty((self._n, self.dim), np.float32)
         for s in range(self.n_shards):
             if len(self._shard_ids[s]):
-                out[self._shard_ids[s]] = decrypt_array(
-                    self._cipher_key, self._shards[s])
+                out[self._shard_ids[s]] = self._decrypt(self._shards[s])
         return torch.from_numpy(out)
 
     def _prepare(self, s: int, dtype: str) -> dict:
@@ -244,8 +253,8 @@ class SecureGallery:
         gallery is normalized here)."""
         prep = self._prep[s]
         if "gn" not in prep:
-            g = torch.from_numpy(decrypt_array(
-                self._cipher_key, self._shards[s])).to(self.device)
+            g = torch.from_numpy(self._decrypt(self._shards[s])) \
+                .to(self.device)
             prep["gn"] = g / torch.clamp(torch.linalg.vector_norm(
                 g, dim=-1, keepdim=True), min=1e-9)
         if dtype == "bf16" and "gn_bf16" not in prep:
@@ -317,7 +326,7 @@ class SecureGallery:
         n_cells = max(1, min(n_cells, self._n))
         codebook = A.kmeans_lite(gn, n_cells, iters=iters, seed=seed)
         self._ann_n_cells = codebook.shape[0]
-        self._ann_blob = encrypt_array(self._cipher_key, codebook)
+        self._ann_blob = self._encrypt(codebook)
         self._ann_codebook = codebook
         self._ann_dev = {}
         self._ann_assign = A.assign_cells(gn, codebook)
@@ -337,8 +346,7 @@ class SecureGallery:
     def _codebook(self) -> np.ndarray:
         """Decrypt-once cached codebook (dropped by ``seal``)."""
         if self._ann_codebook is None:
-            self._ann_codebook = decrypt_array(self._cipher_key,
-                                               self._ann_blob)
+            self._ann_codebook = self._decrypt(self._ann_blob)
         return self._ann_codebook
 
     def _prepare_ann(self, s: int, dtype: str,
@@ -572,7 +580,7 @@ class SecureGallery:
             raise ValueError(f"bad failover target {into} for dead "
                              f"shard {dead}")
         if self._shards[dead] is not None and len(self._shard_ids[dead]):
-            prot = decrypt_array(self._cipher_key, self._shards[dead])
+            prot = self._decrypt(self._shards[dead])
             self._append_to_shard(into, prot, self._shard_ids[dead])
         self._shards[dead] = None
         self._shard_ids[dead] = np.empty((0,), np.int64)
@@ -632,8 +640,7 @@ class SecureGallery:
         raws = []
         for s in range(self.n_shards):
             if len(self._shard_ids[s]):
-                g = torch.from_numpy(decrypt_array(self._cipher_key,
-                                                   self._shards[s]))
+                g = torch.from_numpy(self._decrypt(self._shards[s]))
                 raws.append(self.rotation.unprotect(g.to(self.device)))
             else:
                 raws.append(None)
@@ -646,11 +653,10 @@ class SecureGallery:
         for s, raw in enumerate(raws):
             if raw is None:
                 continue
-            self._shards[s] = encrypt_array(self._cipher_key,
-                                            self._protect_host(raw))
+            self._shards[s] = self._encrypt(self._protect_host(raw))
             self._prep[s] = {}
         if raw_codebook is not None:
             codebook = self._protect_host(raw_codebook)
-            self._ann_blob = encrypt_array(self._cipher_key, codebook)
+            self._ann_blob = self._encrypt(codebook)
             self._ann_codebook = codebook
             self._ann_dev = {}

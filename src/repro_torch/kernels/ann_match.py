@@ -21,7 +21,9 @@ small, query-dependent fraction of the gallery is scored:
 The rescore returns *padded positions* (cell * L + row); the caller owns the
 padded-position -> gallery-row mapping (``CellLayout`` keeps it).  Ties
 follow the reference kernel, not its oracle: among equal scores the earlier
-probe slot wins, then the lower row in the cell.
+probe slot wins, then the lower row in the cell.  Both levels take any k
+(or c) and any row width: above ``MAX_K`` a call runs several rounds of
+the kernel, each finding the next ``MAX_K`` entries (``rounds``).
 
 ``kmeans_lite``, ``assign_cells``, ``CellLayout``, ``build_cell_layout`` and
 ``pack_cells`` are host numpy, as in the reference, so codebooks,
@@ -41,15 +43,15 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.gallery_match import (MAX_D, MAX_K, NEG,
                                                gallery_match_cuda,
                                                gallery_match_quant_cuda,
-                                               quantize_gallery)
+                                               quantize_gallery, rounds)
 
 __all__ = ["NEG", "CellLayout", "kmeans_lite", "assign_cells",
            "build_cell_layout", "pack_cells", "pack_cells_quant",
            "centroid_topc_cuda", "cell_rescore_cuda", "cell_rescore_plain"]
 
-# launches of the CUDA rescore kernel (a call counts one on either path),
-# and the plan (path, warps a block, rows a warp, passes, blocks) of the
-# last launch
+# launches of the CUDA rescore kernel (a call counts one a round on either
+# path), and the plan (path, warps a block, rows a warp, passes, blocks,
+# rounds) of the last call
 launches = 0
 last_plan = None
 
@@ -105,11 +107,13 @@ def _library():
 
 
 def plan(Q: int, c: int, L: int, D: int, itemsize: int, aligned: bool,
-         sms: int):
-    """How a call is launched: (path, warps a block, rows a warp, passes a
-    block, blocks).
+         sms: int, k: int):
+    """How a call at ``k`` is launched: (path, warps a block, rows a warp,
+    passes a block, blocks); all ``rounds(k)`` rounds of the call take
+    that path.
 
-    ``"fused"`` for rows of ``FUSED_D`` values in a 16-byte aligned array:
+    ``"fused"`` for k <= ``MAX_K`` and rows of ``FUSED_D`` values in a
+    16-byte aligned array, in one round:
     a warp takes 16 / 16 / 32 rows (fp32 / bf16 / int8) of one (query,
     slot) pair's cell, with all their loads in flight at once.  While the
     call's rows need at most ``_WIDE_WARPS_PER_SM`` warps an SM (``sms``),
@@ -118,9 +122,10 @@ def plan(Q: int, c: int, L: int, D: int, itemsize: int, aligned: bool,
     larger call takes one-warp blocks, about ``_NARROW_WARPS_PER_SM`` an
     SM, each making passes (at least ``_MIN_PASSES``) over the next rows
     of its cell, so fewer blocks and lists carry the arrival and the
-    merge.  ``"two_pass"`` otherwise: the two-pass kernels, one warp a
-    block of ``CHUNK_ROWS`` rows."""
-    if D == FUSED_D and aligned:
+    merge.  ``"two_pass"`` otherwise, at any k and D: the two-pass kernels,
+    one warp a block of ``CHUNK_ROWS`` rows, in ``rounds(k)`` rounds (rows
+    wider than ``MAX_D`` a chunk of ``MAX_D`` values at a time)."""
+    if D == FUSED_D and aligned and k <= MAX_K:
         rows = _WARP_ROWS[itemsize]
         warps = MAX_WARPS
         while warps > 1 and (warps // 2) * rows >= L:
@@ -239,15 +244,12 @@ def _rescore_cuda(q, cells, cell_scale, ids, lens, k: int, L: int,
     global launches, last_plan
     Q, D = q.shape
     c = ids.shape[1]
-    if D > MAX_D:
-        raise ValueError(f"cell_rescore: D={D} above the kernel's {MAX_D}")
-    if k > MAX_K:
-        raise ValueError(f"cell_rescore: k={k} above the kernel's {MAX_K}")
     lib = _library()
     dev = q.device
     path, warps, rows, passes, blocks = plan(
         Q, c, L, D, cells.element_size(), cells.data_ptr() % 16 == 0,
-        _sm_count(dev))
+        _sm_count(dev), k)
+    n_rounds = rounds(k)
     code = _DTYPE_CODE[cells.dtype]
     if code == 1 and q.dtype == torch.float32:
         if path == "fused":
@@ -259,7 +261,8 @@ def _rescore_cuda(q, cells, cell_scale, ids, lens, k: int, L: int,
     with (torch.cuda.device(dev) if dev.index != torch.cuda.current_device()
           else contextlib.nullcontext()):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        part, counts, best = _scratch_for(dev, stream, blocks * k, Q)
+        k_round = min(k, MAX_K)            # a round's partials
+        part, counts, best = _scratch_for(dev, stream, blocks * k_round, Q)
         args = (q.data_ptr(), cells.data_ptr(),
                 cell_scale.data_ptr() if cell_scale is not None else None,
                 ids.data_ptr(), lens.data_ptr(), Q, c, D, L, k,
@@ -274,13 +277,13 @@ def _rescore_cuda(q, cells, cell_scale, ids, lens, k: int, L: int,
                 best.zero_()
         else:                 # partial scores, then keys, in the scratch
             err = lib.cr_rescore(code, *args, part.data_ptr(),
-                                 part.data_ptr() + 4 * blocks * k,
+                                 part.data_ptr() + 4 * blocks * k_round,
                                  out_s.data_ptr(), out_i.data_ptr(), stream)
     if err != 0:
         raise RuntimeError("cell_rescore: kernel launch failed: "
                            + lib.cr_error_string(err).decode())
-    launches += 1
-    last_plan = (path, warps, rows, passes, blocks)
+    launches += n_rounds
+    last_plan = (path, warps, rows, passes, blocks, n_rounds)
     return out_s, out_i
 
 

@@ -75,6 +75,18 @@
 //     k) partial.
 //   pass 2: one warp per query merges the c*chunks*k partials with the same
 //     list and stores scores and padded positions.
+//   Rows wider than kMaxD values are scored in chunks of kMaxD: the warp
+//   stages each chunk of its query in turn, and each lane's dot goes on
+//   accumulating over the same values in the same order.
+//   k above kMaxK (the most entries a warp's list holds): ceil(k / kMaxK)
+//   rounds of the two kernels, one after another on the stream, each
+//   finding the next kMaxK entries.  The order (score descending, then the
+//   order key) is total, so round r admits only the rows that rank strictly
+//   after the last entry of round r - 1 for that query (read from the
+//   output, where that round left its order key); a block whose query has
+//   run out of rows scores nothing.  Every round takes this path, so every
+//   row's dot is summed in the same order in each.  A last kernel turns the
+//   order keys into padded positions.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -90,7 +102,8 @@ namespace {
 
 constexpr int kRows = 32;      // rows of one cell per block
 constexpr int kBatch = 8;      // rows a warp has in flight at once
-constexpr int kMaxD = 512;     // the staged query's shared-memory size
+constexpr int kMaxD = 512;     // the staged query's shared-memory size:
+                               // wider rows are scored a chunk at a time
 
 __device__ __forceinline__ float warp_sum(float x) {
   // a butterfly: every lane ends with the same sum, bit for bit
@@ -110,12 +123,16 @@ __device__ __forceinline__ float piece_dot(const uint4& v, const float* q) {
 }
 
 // VEC: each row is at most 32 pieces of 16 bytes and 16-byte aligned.
+// after_s / after_i: a later round's cursor (ld_after apart a query), null
+// in the first round.
 template <typename TQ, typename TG, bool VEC>
 __global__ void __launch_bounds__(32)
 rescore_partial_kernel(const TQ* __restrict__ q, const TG* __restrict__ cells,
                        const float* __restrict__ scale,
                        const int* __restrict__ ids, const int* __restrict__ lens,
                        int c, int D, int L, int k, int fuse_norm,
+                       const float* __restrict__ after_s,
+                       const int* __restrict__ after_i, int ld_after,
                        float* __restrict__ part_s, int* __restrict__ part_i) {
   __shared__ float q_s[kMaxD];
   const int lane = threadIdx.x;
@@ -123,21 +140,28 @@ rescore_partial_kernel(const TQ* __restrict__ q, const TG* __restrict__ cells,
   const int qi = pair / c, slot = pair % c;
   const int chunk = blockIdx.y;
   const int cid = ids[pair];
-  const int n_valid = cid < 0 ? 0 : lens[cid];
+  const bool cursor = after_i != nullptr;
+  const float cur_s = cursor ? after_s[(size_t)qi * ld_after] : 0.0f;
+  const int cur_i = cursor ? after_i[(size_t)qi * ld_after] : -1;
+  // a query that ran out of rows in the round before scores nothing
+  const int n_valid = cid < 0 || (cursor && cur_i < 0) ? 0 : lens[cid];
   const int r0 = chunk * kRows;
   const int r1 = min(r0 + kRows, n_valid);
+  const bool wide = D > kMaxD;                 // VEC is false then
   WarpTopK top;
   top.init();
   if (r0 < r1) {                               // warp-uniform
     float ss = 0.0f;
     for (int d = lane; d < D; d += 32) {
       const float v = to_f32(q[(size_t)qi * D + d]);
-      q_s[d] = v;
+      if (!wide) q_s[d] = v;
       ss = fmaf(v, v, ss);
     }
+    float inv = 1.0f;
     if (fuse_norm) {
-      const float inv = 1.0f / sqrtf(fmaxf(warp_sum(ss), 1e-18f));
-      for (int d = lane; d < D; d += 32) q_s[d] *= inv;
+      inv = 1.0f / sqrtf(fmaxf(warp_sum(ss), 1e-18f));
+      if (!wide)
+        for (int d = lane; d < D; d += 32) q_s[d] *= inv;
     }
     __syncwarp();
     const TG* cell = cells + (size_t)cid * L * D;
@@ -160,11 +184,23 @@ rescore_partial_kernel(const TQ* __restrict__ q, const TG* __restrict__ cells,
       } else {
 #pragma unroll
         for (int u = 0; u < kBatch; ++u) acc[u] = 0.0f;
-        for (int d = lane; d < D; d += 32) {
-          const float qv = q_s[d];
+        // one chunk of kMaxD values at a time; a lane takes values lane,
+        // lane + 32, ... of the row in order, however it is chunked
+        for (int d0 = 0; d0 < D; d0 += kMaxD) {
+          const int dc = min(kMaxD, D - d0);
+          if (wide) {                          // this chunk of the query
+            __syncwarp();
+            for (int d = lane; d < dc; d += 32)
+              q_s[d] = to_f32(q[(size_t)qi * D + d0 + d]) * inv;
+            __syncwarp();
+          }
+          for (int d = lane; d < dc; d += 32) {
+            const float qv = q_s[d];
 #pragma unroll
-          for (int u = 0; u < kBatch; ++u)
-            if (r + u < r1) acc[u] = fmaf(qv, to_f32(cell[(size_t)(r + u) * D + d]), acc[u]);
+            for (int u = 0; u < kBatch; ++u)
+              if (r + u < r1)
+                acc[u] = fmaf(qv, to_f32(cell[(size_t)(r + u) * D + d0 + d]), acc[u]);
+          }
         }
       }
 #pragma unroll
@@ -172,7 +208,8 @@ rescore_partial_kernel(const TQ* __restrict__ q, const TG* __restrict__ cells,
         if (r + u < r1) {                      // warp-uniform
           float s = warp_sum(acc[u]);
           if (cell_scale != nullptr) s *= cell_scale[r + u];
-          top.offer(s, slot * L + r + u, k);
+          const int key = slot * L + r + u;
+          if (!cursor || better(cur_s, cur_i, s, key)) top.offer(s, key, k);
         }
       }
     }
@@ -181,22 +218,37 @@ rescore_partial_kernel(const TQ* __restrict__ q, const TG* __restrict__ cells,
   top.store(part_s + o, part_i + o, k);
 }
 
-// One warp per query: merge its c*chunks*k partials, then turn each order
-// key slot * L + row into the padded position ids[qi, slot] * L + row.
+// One warp per query: merge its c*chunks*k partials into row qi of the
+// result (ld_out apart a query); unless `keys`, turn each order key
+// slot * L + row into the padded position ids[qi, slot] * L + row.
 __global__ void __launch_bounds__(32)
 rescore_merge_kernel(const float* __restrict__ part_s,
                      const int* __restrict__ part_i, const int* __restrict__ ids,
                      int c, int chunks, int L, int k, float* __restrict__ out_s,
-                     int* __restrict__ out_i) {
+                     int* __restrict__ out_i, int ld_out, int keys) {
   const int qi = blockIdx.x;
   const int n = c * chunks * k;
   WarpTopK top;
   top.init();
   merge_partials(part_s + (size_t)qi * n, part_i + (size_t)qi * n, n, k, top);
   const int* qids = ids + (size_t)qi * c;
-  if (top.i0 >= 0) top.i0 = qids[top.i0 / L] * L + top.i0 % L;
-  if (top.i1 >= 0) top.i1 = qids[top.i1 / L] * L + top.i1 % L;
-  top.store(out_s + (size_t)qi * k, out_i + (size_t)qi * k, k);
+  if (!keys) {
+    if (top.i0 >= 0) top.i0 = qids[top.i0 / L] * L + top.i0 % L;
+    if (top.i1 >= 0) top.i1 = qids[top.i1 / L] * L + top.i1 % L;
+  }
+  top.store(out_s + (size_t)qi * ld_out, out_i + (size_t)qi * ld_out, k);
+}
+
+// After several rounds: every order key of the (Q, k) result into its
+// padded position, one block a query.
+__global__ void keys_to_positions_kernel(const int* __restrict__ ids, int c,
+                                         int L, int k, int* __restrict__ out_i) {
+  const int qi = blockIdx.x;
+  const int* qids = ids + (size_t)qi * c;
+  for (int t = threadIdx.x; t < k; t += blockDim.x) {
+    const int key = out_i[(size_t)qi * k + t];
+    if (key >= 0) out_i[(size_t)qi * k + t] = qids[key / L] * L + key % L;
+  }
 }
 
 template <typename TQ, typename TG>
@@ -211,13 +263,23 @@ int launch(const void* q, const void* cells, const float* scale,
   auto kern = vec ? &rescore_partial_kernel<TQ, TG, true>
                   : &rescore_partial_kernel<TQ, TG, false>;
   const dim3 grid((unsigned)Q * (unsigned)c, chunks);
-  kern<<<grid, 32, 0, stream>>>(
-      static_cast<const TQ*>(q), static_cast<const TG*>(cells), scale, ids,
-      lens, c, D, L, k, fuse_norm, part_s, part_i);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  rescore_merge_kernel<<<Q, 32, 0, stream>>>(part_s, part_i, ids, c, chunks,
-                                              L, k, out_s, out_i);
+  const bool rounds = k > kMaxK;               // several: keys until the end
+  for (int c0 = 0; c0 < k; c0 += kMaxK) {
+    const int kr = min(kMaxK, k - c0);
+    kern<<<grid, 32, 0, stream>>>(
+        static_cast<const TQ*>(q), static_cast<const TG*>(cells), scale, ids,
+        lens, c, D, L, kr, fuse_norm, c0 ? out_s + c0 - 1 : nullptr,
+        c0 ? out_i + c0 - 1 : nullptr, k, part_s, part_i);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    rescore_merge_kernel<<<Q, 32, 0, stream>>>(part_s, part_i, ids, c, chunks,
+                                                L, kr, out_s + c0, out_i + c0,
+                                                k, (int)rounds);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (rounds)
+    keys_to_positions_kernel<<<Q, 128, 0, stream>>>(ids, c, L, k, out_i);
   return (int)cudaGetLastError();
 }
 
@@ -582,16 +644,18 @@ int cr_max_k() { return kMaxK; }
 int cr_max_d() { return kMaxD; }
 int cr_chunk_rows() { return kRows; }
 
-// dtype: 0 = fp32 query and cells, 1 = bf16 query and cells, 2 = fp32 query
-// with int8 cells and their fp32 per-row scale.  ids (Q, c) and lens (K,)
-// are int32; part_s/part_i hold (Q, c, ceil(L / cr_chunk_rows()), k);
-// out_s/out_i hold (Q, k).  Returns a cudaError_t code: 0 when both launches
-// were accepted.
+// The two-pass path, at any k and D.  dtype: 0 = fp32 query and cells,
+// 1 = bf16 query and cells, 2 = fp32 query with int8 cells and their fp32
+// per-row scale.  ids (Q, c) and lens (K,) are int32; part_s/part_i hold
+// (Q, c, ceil(L / cr_chunk_rows()), min(k, cr_max_k())); out_s/out_i hold
+// (Q, k).  ceil(k / cr_max_k()) rounds of two launches, and one more launch
+// where there are several.  Returns a cudaError_t code: 0 when every launch
+// was accepted.
 int cr_rescore(int dtype, const void* q, const void* cells, const void* scale,
                const void* ids, const void* lens, int Q, int c, int D, int L,
                int k, int fuse_norm, void* part_s, void* part_i, void* out_s,
                void* out_i, void* stream) {
-  if (k < 1 || k > kMaxK || Q < 1 || c < 1 || D < 1 || D > kMaxD || L < 1 ||
+  if (k < 1 || Q < 1 || c < 1 || D < 1 || L < 1 ||
       (L + kRows - 1) / kRows > 65535 || (long long)Q * c > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -64,6 +64,19 @@
 //   score enters only if it beats the k-th entry, found with one ballot, and
 //   is inserted with a warp-wide shift.  The block writes its lists as (Q, S,
 //   k) partials, and one warp per query merges them into the (Q, k) result.
+//   Rows wider than kMaxD values are scored in chunks of kMaxD: the block
+//   stages each chunk of its queries and of the tile in turn, and the dots
+//   go on accumulating in the same registers, in the same order.
+//
+// k above kMaxK (the most entries a warp's list holds): the call runs
+//   ceil(k / kMaxK) rounds of the tiled path, one after another on the
+//   stream, each finding the next kMaxK entries.  The order (score
+//   descending, index ascending) is total, so round r admits only the rows
+//   that rank strictly after the last entry of round r - 1 for that query
+//   (read from the output, where that round stored it); a block whose
+//   queries have all run out of rows scores nothing.  Every round takes the
+//   same path, so every row's dot is summed in the same order in each: no
+//   row moves by an ulp between rounds to be lost or repeated.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -79,6 +92,7 @@ constexpr int kWarps = 8;                  // warps per block in pass 1
 constexpr int kQPerWarp = 4;               // queries each warp owns
 constexpr int kBQ = kWarps * kQPerWarp;    // queries per block
 constexpr int kTN = 64;                    // gallery rows per shared tile
+constexpr int kMaxD = 512;                 // row values staged at once
 
 // Widen one 16-byte chunk of gallery values to fp32 in shared memory.
 template <typename TG>
@@ -91,17 +105,24 @@ __device__ __forceinline__ void chunk_to_f32(const uint4& v, float* dst) {
 // VEC: each gallery row is at most 32 chunks of 16 bytes and 16-byte
 // aligned.  Warp w then loads rows w, w+8, ... of a tile with one 16-byte
 // load a lane, and fetches the next tile into registers while it scores
-// this one.  Otherwise every thread loads single elements.
-template <typename TQ, typename TG, bool VEC>
+// this one.  Otherwise every thread loads single elements.  WIDE: rows of
+// more than kMaxD values, staged and scored a chunk of kMaxD at a time.
+// after_s / after_i: a later round's cursor (ld_after apart a query), null
+// in the first round.
+template <typename TQ, typename TG, bool VEC, bool WIDE>
 __global__ void __launch_bounds__(kWarps * 32)
 match_partial_kernel(const TQ* __restrict__ q, const TG* __restrict__ g,
                      const float* __restrict__ scale, int Q, int N, int D,
                      int k, int fuse_norm, int rows_per_split,
+                     const float* __restrict__ after_s,
+                     const int* __restrict__ after_i, int ld_after,
                      float* __restrict__ part_s, int* __restrict__ part_i) {
   extern __shared__ float smem[];
-  float* q_s = smem;                    // (kBQ, D)
-  float* g_s = smem + kBQ * D;          // (kTN, D + 1): the pad keeps the
+  const int DC = WIDE ? kMaxD : D;      // row values staged at once
+  float* q_s = smem;                    // (kBQ, DC)
+  float* g_s = smem + kBQ * DC;         // (kTN, DC + 1): the pad keeps the
                                         // lanes' rows in distinct banks
+  __shared__ float q_inv[kBQ];          // WIDE: each query's 1 / norm, or 1
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -110,28 +131,62 @@ match_partial_kernel(const TQ* __restrict__ q, const TG* __restrict__ g,
   const int S = gridDim.y;
   const int n_begin = split * rows_per_split;
   const int n_end = min(N, n_begin + rows_per_split);
+  const int qw = q0 + warp * kQPerWarp;   // this warp's first query
 
-  for (int e = tid; e < kBQ * D; e += blockDim.x) {
-    const int qi = q0 + e / D;
-    q_s[e] = qi < Q ? to_f32(q[(size_t)qi * D + e % D]) : 0.0f;
+  // a later round's cursor: each query's last entry of the round before
+  const bool cursor = after_i != nullptr;
+  float cur_s[kQPerWarp];
+  int cur_i[kQPerWarp];
+#pragma unroll
+  for (int j = 0; j < kQPerWarp; ++j) {
+    const bool has = cursor && qw + j < Q;
+    cur_s[j] = has ? after_s[(size_t)(qw + j) * ld_after] : 0.0f;
+    cur_i[j] = has ? after_i[(size_t)(qw + j) * ld_after] : -1;
   }
-  __syncthreads();
-  if (fuse_norm) {
+  // block-uniform: false once every query of the block has run out of rows
+  const bool live = !cursor || __syncthreads_or(
+      tid < kBQ && q0 + tid < Q &&
+      after_i[(size_t)(q0 + tid) * ld_after] >= 0);
+
+  if constexpr (!WIDE) {
+    for (int e = tid; e < kBQ * D; e += blockDim.x) {
+      const int qi = q0 + e / D;
+      q_s[e] = qi < Q ? to_f32(q[(size_t)qi * D + e % D]) : 0.0f;
+    }
+    __syncthreads();
+    if (fuse_norm) {
+      for (int j = 0; j < kQPerWarp; ++j) {
+        float* row = q_s + (warp * kQPerWarp + j) * D;
+        float ss = 0.0f;
+        for (int d = lane; d < D; d += 32) ss += row[d] * row[d];
+        for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+        const float inv = 1.0f / sqrtf(fmaxf(ss, 1e-18f));
+        __syncwarp();
+        for (int d = lane; d < D; d += 32) row[d] *= inv;
+      }
+    }
+  } else {
+    // the same sum of squares as above, read from device memory; each
+    // chunk is staged later already scaled by its query's 1 / norm
     for (int j = 0; j < kQPerWarp; ++j) {
-      float* row = q_s + (warp * kQPerWarp + j) * D;
+      const int qi = qw + j;
       float ss = 0.0f;
-      for (int d = lane; d < D; d += 32) ss += row[d] * row[d];
+      if (fuse_norm && qi < Q) {          // warp-uniform
+        for (int d = lane; d < D; d += 32) {
+          const float v = to_f32(q[(size_t)qi * D + d]);
+          ss += v * v;
+        }
+      }
       for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
-      const float inv = 1.0f / sqrtf(fmaxf(ss, 1e-18f));
-      __syncwarp();
-      for (int d = lane; d < D; d += 32) row[d] *= inv;
+      if (lane == 0)
+        q_inv[warp * kQPerWarp + j] =
+            fuse_norm ? 1.0f / sqrtf(fmaxf(ss, 1e-18f)) : 1.0f;
     }
   }
 
   WarpTopK top[kQPerWarp];
 #pragma unroll
   for (int j = 0; j < kQPerWarp; ++j) top[j].init();
-  const int qw = q0 + warp * kQPerWarp;   // this warp's first query
   const int stride = D + 1;
 
   constexpr int kEPC = 16 / (int)sizeof(TG);   // gallery values a chunk
@@ -148,42 +203,79 @@ match_partial_kernel(const TQ* __restrict__ q, const TG* __restrict__ g,
                    : make_uint4(0u, 0u, 0u, 0u);
     }
   };
-  if constexpr (VEC) fetch(n_begin);
+  if constexpr (VEC) {
+    if (live) fetch(n_begin);
+  }
 
-  for (int t0 = n_begin; t0 < n_end; t0 += kTN) {
-    __syncthreads();                      // the previous tile is consumed
+  for (int t0 = n_begin; live && t0 < n_end; t0 += kTN) {
     const int rows = min(kTN, n_end - t0);
-    if constexpr (VEC) {
-      if (lane < row_chunks) {
-#pragma unroll
-        for (int i = 0; i < kRowsPerWarp; ++i)
-          chunk_to_f32<TG>(pre[i], g_s + (warp + kWarps * i) * stride + lane * kEPC);
-      }
-    } else {
-      for (int e = tid; e < kTN * D; e += blockDim.x) {
-        const int r = e / D, c = e % D;
-        g_s[r * stride + c] = r < rows ? to_f32(g[(size_t)(t0 + r) * D + c]) : 0.0f;
-      }
-    }
-    __syncthreads();
-    if constexpr (VEC) {
-      if (t0 + kTN < n_end) fetch(t0 + kTN);  // in flight while scoring
-    }
-    if (qw >= Q) continue;                // warp-uniform: no live query
     float acc[kQPerWarp][2];
 #pragma unroll
     for (int j = 0; j < kQPerWarp; ++j) acc[j][0] = acc[j][1] = 0.0f;
-    const float* ga = g_s + lane * stride;
-    const float* gb = g_s + (lane + 32) * stride;
-    const float* qa = q_s + warp * kQPerWarp * D;
-    for (int d = 0; d < D; ++d) {
-      const float va = ga[d], vb = gb[d];
+    if constexpr (!WIDE) {
+      __syncthreads();                    // the previous tile is consumed
+      if constexpr (VEC) {
+        if (lane < row_chunks) {
 #pragma unroll
-      for (int j = 0; j < kQPerWarp; ++j) {
-        const float qv = qa[j * D + d];
-        acc[j][0] = fmaf(qv, va, acc[j][0]);
-        acc[j][1] = fmaf(qv, vb, acc[j][1]);
+          for (int i = 0; i < kRowsPerWarp; ++i)
+            chunk_to_f32<TG>(pre[i], g_s + (warp + kWarps * i) * stride + lane * kEPC);
+        }
+      } else {
+        for (int e = tid; e < kTN * D; e += blockDim.x) {
+          const int r = e / D, c = e % D;
+          g_s[r * stride + c] = r < rows ? to_f32(g[(size_t)(t0 + r) * D + c]) : 0.0f;
+        }
       }
+      __syncthreads();
+      if constexpr (VEC) {
+        if (t0 + kTN < n_end) fetch(t0 + kTN);  // in flight while scoring
+      }
+      if (qw >= Q) continue;              // warp-uniform: no live query
+      const float* ga = g_s + lane * stride;
+      const float* gb = g_s + (lane + 32) * stride;
+      const float* qa = q_s + warp * kQPerWarp * D;
+      for (int d = 0; d < D; ++d) {
+        const float va = ga[d], vb = gb[d];
+#pragma unroll
+        for (int j = 0; j < kQPerWarp; ++j) {
+          const float qv = qa[j * D + d];
+          acc[j][0] = fmaf(qv, va, acc[j][0]);
+          acc[j][1] = fmaf(qv, vb, acc[j][1]);
+        }
+      }
+    } else {
+      // a chunk at a time: the block's queries and the tile, that chunk of
+      // each, into shared memory, then its multiply-adds
+      for (int d0 = 0; d0 < D; d0 += kMaxD) {
+        const int dc = min(kMaxD, D - d0);
+        __syncthreads();                  // the previous chunk is consumed
+        for (int e = tid; e < kBQ * dc; e += blockDim.x) {
+          const int r = e / dc, c = e % dc;
+          const int qi = q0 + r;
+          q_s[r * dc + c] =
+              qi < Q ? to_f32(q[(size_t)qi * D + d0 + c]) * q_inv[r] : 0.0f;
+        }
+        for (int e = tid; e < kTN * dc; e += blockDim.x) {
+          const int r = e / dc, c = e % dc;
+          g_s[r * (dc + 1) + c] =
+              r < rows ? to_f32(g[(size_t)(t0 + r) * D + d0 + c]) : 0.0f;
+        }
+        __syncthreads();
+        if (qw >= Q) continue;            // warp-uniform: no live query
+        const float* ga = g_s + lane * (dc + 1);
+        const float* gb = g_s + (lane + 32) * (dc + 1);
+        const float* qa = q_s + warp * kQPerWarp * dc;
+        for (int d = 0; d < dc; ++d) {
+          const float va = ga[d], vb = gb[d];
+#pragma unroll
+          for (int j = 0; j < kQPerWarp; ++j) {
+            const float qv = qa[j * dc + d];
+            acc[j][0] = fmaf(qv, va, acc[j][0]);
+            acc[j][1] = fmaf(qv, vb, acc[j][1]);
+          }
+        }
+      }
+      if (qw >= Q) continue;
     }
     if (scale != nullptr) {               // int8: per-row scale after the dot
       const float sa = lane < rows ? scale[t0 + lane] : 0.0f;
@@ -196,12 +288,16 @@ match_partial_kernel(const TQ* __restrict__ q, const TG* __restrict__ g,
       if (qw + j >= Q) continue;          // warp-uniform
       float ts; int ti;
       top[j].kth(k, ts, ti);
-      // candidates in ascending row order: rows t0+0..31, then t0+32..63
+      // candidates in ascending row order: rows t0+0..31, then t0+32..63;
+      // in a later round only those that rank after the cursor
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int r = lane + 32 * h;
         const float s = acc[j][h];
-        unsigned m = __ballot_sync(0xffffffffu, r < rows && better(s, t0 + r, ts, ti));
+        const bool after = !cursor ||
+            (cur_i[j] >= 0 && better(cur_s[j], cur_i[j], s, t0 + r));
+        unsigned m = __ballot_sync(0xffffffffu, r < rows && after &&
+                                                better(s, t0 + r, ts, ti));
         while (m) {
           const int b = __ffs(m) - 1;
           m &= m - 1;
@@ -220,40 +316,54 @@ match_partial_kernel(const TQ* __restrict__ q, const TG* __restrict__ g,
   }
 }
 
-// One warp per query: merge its S*k partials into the (Q, k) result.
+// One warp per query: merge its S*k partials into row qi of the result,
+// ld_out apart a query.
 __global__ void __launch_bounds__(32)
 merge_kernel(const float* __restrict__ part_s, const int* __restrict__ part_i,
-             int S, int k, float* __restrict__ out_s, int* __restrict__ out_i) {
+             int S, int k, float* __restrict__ out_s, int* __restrict__ out_i,
+             int ld_out) {
   const int qi = blockIdx.x;
   const int n = S * k;
   WarpTopK top;
   top.init();
   merge_partials(part_s + (size_t)qi * n, part_i + (size_t)qi * n, n, k, top);
-  top.store(out_s + (size_t)qi * k, out_i + (size_t)qi * k, k);
+  top.store(out_s + (size_t)qi * ld_out, out_i + (size_t)qi * ld_out, k);
 }
 
+// The tiled path: ceil(k / kMaxK) rounds of the two kernels, round r
+// filling columns r * kMaxK on of the (Q, k) result.
 template <typename TQ, typename TG>
 int launch(const void* q, const void* g, const float* scale, int Q, int N,
            int D, int k, int fuse_norm, int splits, float* part_s,
            int* part_i, float* out_s, int* out_i, cudaStream_t stream) {
   const int rows_per_split = (N + splits - 1) / splits;
-  const size_t smem = sizeof(float) * ((size_t)kBQ * D + (size_t)kTN * (D + 1));
+  const bool wide = D > kMaxD;
+  const size_t dc = wide ? kMaxD : D;
+  const size_t smem = sizeof(float) * ((size_t)kBQ * dc + (size_t)kTN * (dc + 1));
   const size_t row_bytes = (size_t)D * sizeof(TG);
   const bool vec = row_bytes % 16 == 0 && row_bytes <= 32 * 16 &&
                    reinterpret_cast<uintptr_t>(g) % 16 == 0;
-  auto kern = vec ? &match_partial_kernel<TQ, TG, true>
-                  : &match_partial_kernel<TQ, TG, false>;
+  auto kern = wide ? &match_partial_kernel<TQ, TG, false, true>
+              : vec ? &match_partial_kernel<TQ, TG, true, false>
+                    : &match_partial_kernel<TQ, TG, false, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Q + kBQ - 1) / kBQ, splits);
-  kern<<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const TQ*>(q), static_cast<const TG*>(g), scale, Q, N, D, k,
-      fuse_norm, rows_per_split, part_s, part_i);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  merge_kernel<<<Q, 32, 0, stream>>>(part_s, part_i, splits, k, out_s, out_i);
-  return (int)cudaGetLastError();
+  for (int c0 = 0; c0 < k; c0 += kMaxK) {
+    const int kr = min(kMaxK, k - c0);
+    kern<<<grid, kWarps * 32, smem, stream>>>(
+        static_cast<const TQ*>(q), static_cast<const TG*>(g), scale, Q, N, D,
+        kr, fuse_norm, rows_per_split, c0 ? out_s + c0 - 1 : nullptr,
+        c0 ? out_i + c0 - 1 : nullptr, k, part_s, part_i);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    merge_kernel<<<Q, 32, 0, stream>>>(part_s, part_i, splits, kr,
+                                       out_s + c0, out_i + c0, k);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 
@@ -467,15 +577,16 @@ extern "C" {
 
 int gm_max_k() { return kMaxK; }
 
-// dtype: 0 = fp32 query and gallery, 1 = bf16 query and gallery,
-// 2 = fp32 query with an int8 gallery and its fp32 per-row scale.
-// part_s/part_i hold (Q, splits, k); out_s/out_i hold (Q, k).
-// Returns a cudaError_t code: 0 when both launches were accepted.
+// The tiled path, at any k and D.  dtype: 0 = fp32 query and gallery,
+// 1 = bf16 query and gallery, 2 = fp32 query with an int8 gallery and its
+// fp32 per-row scale.  part_s/part_i hold (Q, splits, min(k, kMaxK));
+// out_s/out_i hold (Q, k).  ceil(k / kMaxK) rounds of two launches each.
+// Returns a cudaError_t code: 0 when every launch was accepted.
 int gm_match(int dtype, const void* q, const void* g, const void* scale,
              int Q, int N, int D, int k, int fuse_norm, int splits,
              void* part_s, void* part_i, void* out_s, void* out_i,
              void* stream) {
-  if (k < 1 || k > kMaxK || Q < 1 || N < 1 || D < 1 || splits < 1)
+  if (k < 1 || Q < 1 || N < 1 || D < 1 || splits < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* ps = static_cast<float*>(part_s);

@@ -12,6 +12,10 @@ into ``build/kernels/``, bound through ``ctypes``); on a CPU tensor they run
 device raises: there is no fallback from the kernel to the plain version.
 The kernel has two paths, a small-Q one for the serving path's one to a
 few queries at small k and a tiled one for the rest; ``plan`` chooses.
+Any k and any row width D: above ``MAX_K`` the call runs ``rounds(k)``
+rounds of the tiled path, each finding the next ``MAX_K`` entries after
+the last round's last one, and rows wider than ``MAX_D`` are scored a
+chunk of ``MAX_D`` values at a time.
 
 Contract (the reference kernel's):
 
@@ -35,8 +39,9 @@ import torch
 from repro_torch.kernels import _build
 
 NEG = -3.0e38
-MAX_K = 64              # the kernel keeps two list entries per lane
-MAX_D = 512             # query tile + gallery tile fit the 227 KB of smem
+MAX_K = 64              # entries a round finds: two list entries a lane
+MAX_D = 512             # row values staged at once: a query tile and a
+                        # gallery tile of that width fit the 227 KB of smem
 SMALL_Q = 8             # the small-Q path's most queries (kSmallQ in the .cu)
 SMALL_D = 128           # and the one row width it takes
 SMALL_QK = 32           # its most Q * k: above, its per-warp lists and last
@@ -45,8 +50,8 @@ _SMALL_WARPS = 8        # warps a block of the small-Q path
 _GROUP_BYTES = 4096     # gallery bytes a warp reads per group (32 x 8 x 16)
 _TILE_ROWS = 64         # gallery rows a tile of the tiled path
 
-# launches of the CUDA kernel (the tiled path's two passes count as one),
-# and the path and split count of the last launch
+# launches of the CUDA kernel (one a round; the tiled path's two kernels
+# count as one), and the path, split count and rounds of the last call
 launches = 0
 last_plan = None
 
@@ -87,18 +92,25 @@ def _library():
     return _lib
 
 
+def rounds(k: int) -> int:
+    """Rounds of the kernel a call at ``k`` runs: each finds at most
+    ``MAX_K`` entries."""
+    return -(-k // MAX_K)
+
+
 def plan(Q: int, k: int, N: int, D: int, itemsize: int, aligned: bool,
          sms: int, small_blocks_per_sm: int):
-    """Which path of the kernel a call takes, and its split count.
+    """Which path of the kernel a call takes, and its split count; all
+    ``rounds(k)`` rounds of the call take that path.
 
     ``("small", S)`` for Q <= SMALL_Q queries of width SMALL_D with
     Q * k <= SMALL_QK against a 16-byte aligned gallery: a persistent grid
     of S blocks, as many as fit on the ``sms`` SMs at
     ``small_blocks_per_sm`` each, but no more than the gallery has tiles (a
-    block's warps each take one group of ``_GROUP_BYTES``).  ``("tiled",
-    S)`` otherwise: S splits of the gallery per 32-query tile, enough
-    blocks for a few waves over the SMs, each split at least one 64-row
-    tile."""
+    block's warps each take one group of ``_GROUP_BYTES``); one round, as
+    Q * k <= SMALL_QK < MAX_K.  ``("tiled", S)`` otherwise, at any k and
+    D: S splits of the gallery per 32-query tile, enough blocks for a few
+    waves over the SMs, each split at least one 64-row tile."""
     if Q <= SMALL_Q and Q * k <= SMALL_QK and D == SMALL_D and aligned:
         tile = _SMALL_WARPS * _GROUP_BYTES // (D * itemsize)
         return "small", max(1, min(small_blocks_per_sm * sms, -(-N // tile)))
@@ -149,23 +161,21 @@ def _match_cuda(q, g, g_scale, k_eff: int, fuse_norm: bool):
         raise ValueError("gallery_match: q and g must be contiguous")
     if g_scale is not None and not g_scale.is_contiguous():
         raise ValueError("gallery_match: g_scale must be contiguous")
-    if D > MAX_D:
-        raise ValueError(f"gallery_match: D={D} above the kernel's {MAX_D}")
-    if k_eff > MAX_K:
-        raise ValueError(f"gallery_match: k={k_eff} above the kernel's "
-                         f"{MAX_K}")
     lib = _library()
     dev = q.device
     code = _DTYPE_CODE[g.dtype]
     with torch.cuda.device(dev):
         bps = _small_blocks_per_sm(lib, code, Q, k_eff, dev) \
-            if Q <= SMALL_Q else 0
+            if Q <= SMALL_Q and Q * k_eff <= SMALL_QK else 0
         path, S = plan(Q, k_eff, N, D, g.element_size(),
                        g.data_ptr() % 16 == 0,
                        torch.cuda.get_device_properties(dev)
                        .multi_processor_count, bps)
-        part_s = torch.empty((Q, S, k_eff), dtype=torch.float32, device=dev)
-        part_i = torch.empty((Q, S, k_eff), dtype=torch.int32, device=dev)
+        n_rounds = rounds(k_eff)
+        k_round = min(k_eff, MAX_K)        # a round's partials
+        part_s = torch.empty((Q, S, k_round), dtype=torch.float32,
+                             device=dev)
+        part_i = torch.empty((Q, S, k_round), dtype=torch.int32, device=dev)
         out_s = torch.empty((Q, k_eff), dtype=torch.float32, device=dev)
         out_i = torch.empty((Q, k_eff), dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -184,8 +194,8 @@ def _match_cuda(q, g, g_scale, k_eff: int, fuse_norm: bool):
     if err != 0:
         raise RuntimeError("gallery_match: kernel launch failed: "
                            + lib.gm_error_string(err).decode())
-    launches += 1
-    last_plan = (path, S)
+    launches += n_rounds
+    last_plan = (path, S, n_rounds)
     return out_s, out_i
 
 

@@ -493,7 +493,8 @@ def run_lm(arch="tinyllama-1.1b", batch=2, prompt_len=32, gen=16, *,
     params = params.to(dev)
     if tokens is not None:
         batch, prompt_len = tokens.shape
-    drawn = sp.make_batch(cfg, prompt_len, batch, gen_t, device=dev)
+    drawn = sp.make_batch(cfg, prompt_len, batch, gen_t, device=dev,
+                          with_labels=False)
     drawn_tokens = drawn.pop("tokens")
     tokens = drawn_tokens if tokens is None else tokens
     tokens = torch.as_tensor(tokens, dtype=torch.int32, device=dev)

@@ -120,12 +120,14 @@ def input_specs(cfg, shape, mesh=None, rules=None, device="meta"):
 # Concrete batches and caches
 # ---------------------------------------------------------------------------
 def make_batch(cfg, S: int, B: int, generator: torch.Generator,
-               device=None):
-    """Random prompt tokens and, for the vlm and audio families, the
-    modality inputs (``patches`` (B, n_patches, vit_dim), ``frames``
-    (B, encoder_len, d_model), N(0, 1) in ``MODEL_DTYPE``), drawn from
-    ``generator`` (on ``device``) in that order; the reference's labels
-    port with training."""
+               device=None, with_labels: bool = True):
+    """Random prompt tokens, for the vlm and audio families the modality
+    inputs (``patches`` (B, n_patches, vit_dim), ``frames`` (B,
+    encoder_len, d_model), N(0, 1) in ``MODEL_DTYPE``), and, unless
+    ``with_labels`` is False (serving), next-token ``labels`` (B, S) in
+    [0, vocab), as the reference's batch holds; drawn from ``generator``
+    (on ``device``) in that order, so the labels move none of serving's
+    draws."""
     b = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
                                  generator=generator, dtype=torch.int32,
                                  device=device)}
@@ -135,6 +137,10 @@ def make_batch(cfg, S: int, B: int, generator: torch.Generator,
         name = "patches" if cfg.family == "vlm" else "frames"
         b[name] = torch.randn(shape, generator=generator, device=device,
                               dtype=torch.float32).to(MODEL_DTYPE)
+    if with_labels:
+        b["labels"] = torch.randint(0, cfg.vocab_size, (B, S),
+                                    generator=generator, dtype=torch.int32,
+                                    device=device)
     return b
 
 

@@ -485,3 +485,107 @@ def test_run_biometric_ann_matches_reference(pallas_reference,
     assert f"hits={ref_hits} " in line
     assert port.to_json() == ref.to_json()
     assert ref_gallery.last_match_stats["mode"] == "ann"
+
+
+# ---------------------------------------------------------------------------
+# any k, nprobe and row width: rounds of MAX_K, rows in chunks of MAX_D
+# ---------------------------------------------------------------------------
+def _probed(rng, N, D, Q, n_cells, c):
+    """Unit rows in a real codebook's cells, and raw queries probing their
+    top-c cells: (queries, rows, layout, probe table, centroids)."""
+    gn = _normed(rng, N, D)
+    q = 3.0 * (gn[rng.integers(0, N, Q)]
+               + 0.05 * rng.normal(size=(Q, D)).astype(np.float32))
+    cent = A.kmeans_lite(gn, n_cells, seed=1)
+    layout = A.build_cell_layout(A.assign_cells(gn, cent), n_cells)
+    ids = np.argsort(-(q @ cent.T), axis=1, kind="stable")[:, :c]
+    return q, gn, layout, ids.astype(np.int32), cent
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("N,D,n_cells,c,k", [
+    (400, 32, 12, 4, 65), (400, 32, 12, 6, 100), (600, 16, 80, 70, 20),
+    (150, 768, 6, 3, 100)])
+def test_rescore_plain_vs_pallas_kernel_at_any_k_nprobe_and_width(
+        pallas_reference, dtype, N, D, n_cells, c, k):
+    """k above MAX_K, more than MAX_K probes (past a warp's lanes twice)
+    and rows wider than MAX_D: the plain version against the reference's
+    Pallas kernel, positions equal."""
+    rng = np.random.default_rng(N + D + c + k)
+    q, gn, layout, ids, _ = _probed(rng, N, D, 2, n_cells, c)
+    _assert_same(*_rescore_both(q, gn, layout, ids, dtype, k))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rescore_past_the_probed_rows_and_the_first_rounds(dtype):
+    """k = N + 3 (past every probed row: the tail holds the sentinels)
+    against the reference's oracle, on tie-free rows: the oracle scores
+    the query as the port does (cast to the cells' dtype, normalized in
+    fp32) against the cells in fp32 (int8 dequantized first, so within
+    1e-4, hazard R5, and a position may differ only between rows scored
+    within that); and the first MAX_K entries of a k > MAX_K call are the
+    k = MAX_K call's."""
+    rng = np.random.default_rng(11)
+    N, D = 300, 24
+    q, gn, layout, ids, _ = _probed(rng, N, D, 3, 10, 5)
+    rc, rs, pc, ps = _cells(gn, layout, dtype)
+    lens = _t(layout.cell_lens)
+    if dtype == "int8":
+        run = lambda kk: K.cell_rescore_quant(         # noqa: E731
+            _t(q), pc, ps, _t(ids), lens, k=kk, L=layout.L)
+        cells = np.asarray(rc, np.float32) * np.asarray(rs)[:, None]
+    else:
+        run = lambda kk: K.cell_rescore(               # noqa: E731
+            _t(q), pc, _t(ids), lens, k=kk, L=layout.L)
+        cells = np.asarray(rc.astype(jnp.float32))
+    qc = q if dtype != "bf16" else \
+        np.asarray(jnp.asarray(q).astype(jnp.bfloat16).astype(jnp.float32))
+    qn = qc / np.linalg.norm(qc, axis=-1, keepdims=True)
+    k = N + 3
+    s, p = run(k)
+    sr, pr = R.cell_rescore_ref(jnp.asarray(qn), jnp.asarray(cells),
+                                jnp.asarray(ids),
+                                jnp.asarray(layout.cell_lens), k=k,
+                                L=layout.L)
+    sr, pr = np.asarray(sr), np.asarray(pr)
+    tol = 1e-4 if dtype == "int8" else TOL
+    np.testing.assert_allclose(s.numpy(), sr, rtol=0, atol=tol)
+    p = p.numpy()
+    assert np.array_equal(p < 0, pr < 0) and (p[:, -3:] == -1).all()
+    live = p >= 0
+    picked = np.einsum("qd,qkd->qk", qn, cells[np.clip(p, 0, None)])
+    assert np.all((p == pr)[live] | (np.abs(picked - sr)[live] <= tol))
+    s64, p64 = run(A.MAX_K)
+    assert torch.equal(s[:, :A.MAX_K], s64)
+    assert np.array_equal(p[:, :A.MAX_K], p64.numpy())
+
+
+def test_coarse_scan_takes_more_than_max_k_probes():
+    """``centroid_topc`` at c above MAX_K (and above K: sentinels) equals
+    the reference's oracle on the normalized queries."""
+    rng = np.random.default_rng(3)
+    cent = _normed(rng, 90, 32)
+    q = 3.0 * _normed(rng, 4, 32)
+    for c in (65, 90, 100):
+        s, i = K.centroid_topc(_t(q), _t(cent), c=c)
+        sr, ir = R.centroid_topc_ref(jnp.asarray(q / 3.0), jnp.asarray(cent),
+                                     c=c)
+        np.testing.assert_allclose(s.numpy(), np.asarray(sr), rtol=0,
+                                   atol=TOL)
+        np.testing.assert_array_equal(i.numpy(), np.asarray(ir))
+
+
+def test_rescore_plan_takes_one_path_for_every_round():
+    """Above MAX_K, or at rows other than FUSED_D wide (above MAX_D too),
+    the plan never raises and takes the two-pass path, which every round
+    of the call then runs; at most MAX_K over aligned 128-wide rows, the
+    fused path in one round."""
+    for k in (1, 5, 64, 65, 100, 1000, 262_147):
+        for Q, c in ((1, 8), (16, 128), (256, 16)):
+            for D in (128, 512, 768, 2048):
+                for aligned in (True, False):
+                    plan = A.plan(Q, c, 376, D, 4, aligned, 132, k)
+                    fused = k <= A.MAX_K and D == A.FUSED_D and aligned
+                    assert plan[0] == ("fused" if fused else "two_pass")
+                    assert plan[4] >= 1
+                    assert A.rounds(k) == -(-k // A.MAX_K)

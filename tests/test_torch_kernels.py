@@ -394,3 +394,146 @@ def test_import_guard_no_jax():
             for n in names:
                 root = n.split(".")[0]
                 assert root not in ("jax", "jaxlib", "repro"), (f, n)
+
+
+# ---------------------------------------------------------------------------
+# any k and any row width: rounds of MAX_K, rows in chunks of MAX_D
+# ---------------------------------------------------------------------------
+# (Q, N, D, k): two rounds; a ragged second round; k = N + 3 over a gallery
+# of several rounds; rows wider than MAX_D; both at once
+WIDE_SHAPES = [(3, 200, 128, 65), (2, 300, 128, 100), (4, 197, 64, 200),
+               (3, 150, 768, 100), (2, 90, 2048, 5), (1, 70, 600, 1)]
+
+
+@pytest.mark.parametrize("shape", WIDE_SHAPES)
+@pytest.mark.parametrize("dtype", ["fp32", "bf16", "int8"])
+def test_plain_vs_reference_at_any_k_and_width(dtype, shape):
+    """k above MAX_K (up to k > N, whose tail holds the sentinels) and D
+    above MAX_D: the plain version against the reference's oracle; and the
+    first MAX_K entries of each row are the k = MAX_K call's."""
+    Q, N, D, k = shape
+    rng = np.random.default_rng(Q * 7 + N + D)
+    q = rng.normal(size=(Q, D)).astype(np.float32)
+    g = _unit(rng, N, D)
+    qn = q / np.linalg.norm(q, axis=-1, keepdims=True)
+    if dtype == "int8":
+        g8, scale = ref_gm.quantize_gallery(jnp.asarray(g))
+        run = lambda kk: K.gallery_match_quant(          # noqa: E731
+            _t(q), _t(np.asarray(g8)), _t(np.asarray(scale)), k=kk)
+        sr, ir = R.gallery_match_quant_ref(jnp.asarray(qn), g8, scale, k=k)
+        full = _full(qn, np.asarray(g8, np.float64)
+                     * np.asarray(scale)[:, None])
+    else:
+        jdt = jnp.float32 if dtype == "fp32" else jnp.bfloat16
+        tdt = torch.float32 if dtype == "fp32" else torch.bfloat16
+        gj = jnp.asarray(g).astype(jdt)
+        run = lambda kk: K.gallery_match_fused(          # noqa: E731
+            _t(q), _t(g).to(tdt), k=kk)
+        # the query in the gallery's dtype, then normalized in fp32
+        qj = np.asarray(jnp.asarray(q).astype(jdt).astype(jnp.float32))
+        qj = qj / np.linalg.norm(qj, axis=-1, keepdims=True)
+        gf = gj.astype(jnp.float32)
+        sr, ir = R.gallery_match_ref(jnp.asarray(qj), gf, k=k)
+        full = _full(qj, np.asarray(gf))
+    s, i = run(k)
+    assert s.shape == (Q, k) and i.shape == (Q, k)
+    _assert_topk(s.numpy(), i.numpy(), sr, ir, full, TOL[dtype])
+    if k > gm.MAX_K:
+        s64, i64 = run(gm.MAX_K)
+        assert torch.equal(s[:, :gm.MAX_K], s64)
+        assert torch.equal(i[:, :gm.MAX_K], i64)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16", "int8"])
+def test_plain_vs_pallas_kernel_at_large_k_and_width(pallas_reference,
+                                                     dtype):
+    """The reference kernel (interpret mode), which unrolls any k over a
+    (k + BN)-wide block and takes rows of any width: k = 65 and 100 over
+    12 blocks of 16 rows, at D = 128 and 768."""
+    Q, N = 2, 190
+    rng = np.random.default_rng(77)
+    for D, k in ((128, 65), (768, 100)):
+        q = rng.normal(size=(Q, D)).astype(np.float32)
+        g = _unit(rng, N, D)
+        qn = q / np.linalg.norm(q, axis=-1, keepdims=True)
+        if dtype == "int8":
+            g8, scale = ref_gm.quantize_gallery(jnp.asarray(g))
+            sr, ir = ref_gm.gallery_match_quant_pallas(
+                jnp.asarray(q), g8, scale, k=k, bn=16, fuse_norm=True,
+                interpret=True)
+            s, i = K.gallery_match_quant(_t(q), _t(np.asarray(g8)),
+                                         _t(np.asarray(scale)), k=k)
+            full = _full(qn, np.asarray(g8, np.float64)
+                         * np.asarray(scale)[:, None])
+        else:
+            jdt = jnp.float32 if dtype == "fp32" else jnp.bfloat16
+            tdt = torch.float32 if dtype == "fp32" else torch.bfloat16
+            gj = jnp.asarray(g).astype(jdt)
+            sr, ir = ref_gm.gallery_match_pallas(
+                jnp.asarray(q), gj, k=k, bn=16, fuse_norm=True,
+                interpret=True)
+            s, i = K.gallery_match_fused(_t(q), _t(g).to(tdt), k=k)
+            full = _full(np.asarray(jnp.asarray(qn).astype(jdt)
+                                    .astype(jnp.float32)),
+                         np.asarray(gj.astype(jnp.float32)))
+        _assert_topk(s.numpy(), i.numpy(), sr, ir, full, TOL[dtype])
+
+
+def _rounds_model(s, k, max_k):
+    """The kernel's rounds in numpy: round r admits only the rows that
+    rank strictly after round r - 1's last entry (score descending, index
+    ascending) and keeps the best ``max_k`` of them; a query out of rows
+    fills its places with (NEG, -1)."""
+    Q, N = s.shape
+    out_s = np.full((Q, k), gm.NEG, np.float32)
+    out_i = np.full((Q, k), -1, np.int64)
+    for qi in range(Q):
+        cursor = None
+        for c0 in range(0, k, max_k):
+            kr = min(max_k, k - c0)
+            cand = [(float(s[qi, n]), n) for n in range(N)
+                    if cursor is None or (cursor[1] >= 0 and (
+                        cursor[0] > s[qi, n] or (cursor[0] == s[qi, n]
+                                                 and cursor[1] < n)))]
+            cand.sort(key=lambda e: (-e[0], e[1]))
+            for j, (sc, n) in enumerate(cand[:kr]):
+                out_s[qi, c0 + j], out_i[qi, c0 + j] = sc, n
+            cursor = (float(out_s[qi, c0 + kr - 1]),
+                      int(out_i[qi, c0 + kr - 1]))
+    return out_s, out_i
+
+
+@pytest.mark.parametrize("max_k", [1, 3, 64])
+def test_rounds_after_a_cursor_give_the_sorted_list(max_k):
+    """Scores with many exact ties (small integers): rounds of ``max_k``
+    after a cursor give the stable descending sort, ties to the lower
+    index, neither losing nor repeating a row, with sentinels past N."""
+    rng = np.random.default_rng(max_k)
+    s = rng.integers(-3, 4, size=(4, 150)).astype(np.float32)
+    for k in (1, 64, 65, 150, 153):
+        got_s, got_i = _rounds_model(s, k, max_k)
+        order = np.argsort(-s, axis=1, kind="stable")[:, :k]
+        kk = order.shape[1]
+        np.testing.assert_array_equal(got_i[:, :kk], order)
+        np.testing.assert_array_equal(
+            got_s[:, :kk], np.take_along_axis(s, order, axis=1))
+        assert (got_i[:, kk:] == -1).all() and (got_s[:, kk:] == gm.NEG).all()
+
+
+def test_plan_takes_one_path_for_every_round():
+    """Above MAX_K (any Q, N, D, alignment) and above MAX_D the plan never
+    raises and takes the tiled path, which every round of the call then
+    runs; ``rounds`` covers k in rounds of MAX_K; the small-Q path only
+    ever takes one round."""
+    for k in (1, 32, 64, 65, 100, 128, 129, 1000, 262_147):
+        n = gm.rounds(k)
+        assert (n - 1) * gm.MAX_K < k <= n * gm.MAX_K
+        for Q in (1, 2, gm.SMALL_Q, 16, 256):
+            for D in (128, 512, 513, 768, 2048):
+                for aligned in (True, False):
+                    path, S = gm.plan(Q, k, 262_144, D, 4, aligned, 132, 2)
+                    assert S >= 1
+                    if k > gm.MAX_K or D != gm.SMALL_D or not aligned:
+                        assert path == "tiled"
+                    if path == "small":
+                        assert n == 1

@@ -40,7 +40,7 @@ def test_plan_takes_the_fused_path_only_for_aligned_128_wide_rows(sms,
         for c in (1, 8, 16):
             for L in (8, 16, 24, 64, 376, 400, 2048):
                 path, W, R, P, blocks = A.plan(Q, c, L, A.FUSED_D, itemsize,
-                                               True, sms)
+                                               True, sms, A.MAX_K)
                 assert path == "fused" and R == A._WARP_ROWS[itemsize]
                 chunks = -(-L // (P * W * R))
                 assert blocks == Q * c * chunks
@@ -59,7 +59,7 @@ def test_plan_takes_the_fused_path_only_for_aligned_128_wide_rows(sms,
                     assert P >= min(groups, A._MIN_PASSES)
                 for D, aligned in ((36, True), (260, True), (64, True),
                                    (A.FUSED_D, False)):
-                    plan = A.plan(Q, c, L, D, itemsize, aligned, sms)
+                    plan = A.plan(Q, c, L, D, itemsize, aligned, sms, 1)
                     assert plan == ("two_pass", 1, A.CHUNK_ROWS, 1,
                                     Q * c * -(-L // A.CHUNK_ROWS))
 
@@ -73,10 +73,12 @@ def test_plan_at_the_serving_shape():
     for itemsize, L, want in ((4, 376, (4, 16, 1, 48)),
                               (2, 384, (4, 16, 1, 48)),
                               (1, 400, (4, 32, 1, 32))):
-        assert A.plan(1, 8, L, 128, itemsize, True, 132) == ("fused",) + want
-        path, W, R, P, blocks = A.plan(16, 8, L, 128, itemsize, True, 132)
+        assert A.plan(1, 8, L, 128, itemsize, True, 132, 1) == \
+            ("fused",) + want
+        path, W, R, P, blocks = A.plan(16, 8, L, 128, itemsize, True, 132, 1)
         assert (W, P, blocks) == (4, 1, 16 * want[3])
-        path, W, R, P, blocks = A.plan(256, 8, L, 128, itemsize, True, 132)
+        path, W, R, P, blocks = A.plan(256, 8, L, 128, itemsize, True, 132,
+                                       1)
         assert (W, P, blocks) == (1, -(-L // R), 256 * 8)
 
 
@@ -89,7 +91,7 @@ def test_plan_grid_within_launch_limits(itemsize):
         for L in (8, 376, 4096):
             for path_d, aligned in ((A.FUSED_D, True), (36, True)):
                 path, W, R, P, blocks = A.plan(Q, c, L, path_d, itemsize,
-                                               aligned, 132)
+                                               aligned, 132, A.MAX_K)
                 assert 1 <= blocks <= INT_MAX
                 assert c * L <= INT_MAX
                 assert blocks // Q * A.MAX_K <= INT_MAX
@@ -146,7 +148,7 @@ def test_fused_partition_gives_every_valid_row_to_one_warp(Q, c, itemsize):
     ids[-1, -1] = -1
     for sms in (132, 1):
         path, W, R2, P, blocks = A.plan(Q, c, L, A.FUSED_D, itemsize, True,
-                                        sms)
+                                        sms, 5)
         assert path == "fused" and R2 == R
         chunks = blocks // (Q * c)
         hits, part_query = _partition(Q, c, L, lens, ids, W, R, P, chunks)

@@ -22,7 +22,8 @@ from repro.runtime.faults import FaultPlan as RefFaultPlan
 from repro_torch.core import cartridge as pc
 from repro_torch.core import messages as pmsg
 from repro_torch.crypto import (KeyedRotation, cosine_scores, decrypt_array,
-                                decrypt_bytes, encrypt_array, encrypt_bytes)
+                                decrypt_bytes, encrypt_array, encrypt_bytes,
+                                prng_key)
 from repro_torch.data import FrameStream
 from repro_torch.runtime import replication as port_rep
 from repro_torch.runtime.faults import FaultPlan
@@ -184,20 +185,20 @@ def test_rotation_orthogonal_deterministic_and_explicit():
 @pytest.mark.parametrize("n", [0, 1, 3, 4, 1001])
 def test_stream_cipher_roundtrip_and_diffusion(n):
     data = (b"subject-4711:watchlist-alpha" * 40)[:n]
-    enc = encrypt_bytes(42, data)
-    assert decrypt_bytes(42, enc) == data
+    enc = encrypt_bytes(prng_key(42), data)
+    assert decrypt_bytes(prng_key(42), enc) == data
     if n >= 100:
         overlap = np.mean(enc[:n] == np.frombuffer(data, np.uint8))
         assert overlap < 0.05
-        assert decrypt_bytes(43, enc) != data
+        assert decrypt_bytes(prng_key(43), enc) != data
     # counter mode: a longer message's keystream extends a shorter one's
-    zeros = encrypt_bytes(42, bytes(n + 8))
-    assert np.array_equal(zeros[:n], encrypt_bytes(42, bytes(n))[:n])
+    zeros = encrypt_bytes(prng_key(42), bytes(n + 8))
+    assert np.array_equal(zeros[:n], encrypt_bytes(prng_key(42), bytes(n))[:n])
 
 
 def test_encrypt_array_roundtrip():
     x = np.random.default_rng(0).normal(size=(13, 8)).astype(np.float32)
-    enc = encrypt_array(7, x)
-    out = decrypt_array(7, enc)
+    enc = encrypt_array(prng_key(7), x)
+    out = decrypt_array(prng_key(7), enc)
     np.testing.assert_array_equal(out, x)
     assert out.dtype == x.dtype and copy.deepcopy(enc)["shape"] == x.shape
