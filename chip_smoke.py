@@ -6,12 +6,14 @@
 Phases, each printing its lines; any failure exits non-zero:
 
 1. card: the GPU's name and power limit, from nvidia-smi;
-2. build: compile the four CUDA kernels from ``src/repro_torch/kernels/csrc``
-   (one nvcc each for sm_90a, started together) and print each build time;
-   count the tensor-core (HGMMA) and TMA-load (UTMALDG) instructions in
-   the flash library's SASS (``cuobjdump``), which must hold both, and the
-   tensor-core instructions (HMMA, HGMMA) in the SSD library's, which must
-   hold some;
+2. build: compile the four CUDA kernels, the flash forward's training
+   instances (``flash_attention_lse.cu``) and the two backward kernels
+   from ``src/repro_torch/kernels/csrc`` (one nvcc each for sm_90a,
+   started together) and print each build time; count the tensor-core
+   (HGMMA) and TMA-load (UTMALDG) instructions in the flash library's SASS
+   (``cuobjdump``), which must hold both, and the tensor-core instructions
+   (HMMA, HGMMA) in the SSD library's and (HMMA) in the flash backward
+   library's, which must hold some;
 3. gallery-match kernel vs plain: the kernel against its plain PyTorch
    version on the card, for fp32, bf16 and int8 galleries at Q in
    {1, 16, 256}, N in {1000, 262144}, D = 128, k in {1, 5}, plus k > N,
@@ -72,6 +74,17 @@ Phases, each printing its lines; any failure exits non-zero:
    ``F.scaled_dot_product_attention``'s (with the window's mask written
    out, or no mask) device times at the serving shapes beside the bound
    (the kept (query, key) pairs' flops), with each one's share of it;
+   then the backward kernels in both dtypes: dq, dk and dv through
+   ``FlashAttention`` against ``flash_attention_backward`` (autograd
+   through the plain version) at the serving shapes' masks and head dims
+   at batch 1-2, the smoke MLA pair (24, 16), padded to (32, 32), and a
+   window with Sq >= Sk + window (rows that see no key), each gradient
+   by its relative Frobenius error (``FLASH_BWD_REL``), two calls
+   bit-identical, a planted 5 % fault rejected, and the forward's
+   log-sum-exp against the plain one; then timed, split by kernel, at
+   the training shapes (``FLASH_TRAIN``) beside the plain backward,
+   ``scaled_dot_product_attention``'s backward and the bound (2.5 times
+   the forward's flops);
 6. SSD kernel vs plain: in fp32 and bf16, on the CPU tests' shapes, the
    kernel's edges (one chunk; a chunk of 100; P = 8 with N = 4; the smoke
    config, P = N = 16 and L = 32, as strided views; one sequence of one
@@ -83,7 +96,13 @@ Phases, each printing its lines; any failure exits non-zero:
    serving shape runs twice, bit-identical, and every output's check must
    reject a planted 5 % fault there; then the kernel's (split by stage)
    and the plain version's device times at the serving shape in both
-   dtypes beside the bound on tensor cores and on the FMA units;
+   dtypes beside the bound on tensor cores and on the FMA units; then the
+   backward kernels: dx, ddt, dA, dB and dC through ``MambaSSD`` against
+   ``mamba2_ssd_backward`` at zamba2's training microbatch
+   (``SSD_TRAIN``, strided) and on the backward's general path
+   (``SSD_BWD_GENERAL``, and ``SSD_BWD_LONG``, a chunk of 4096), as
+   phase 5's (``SSD_BWD_REL``), then timed,
+   split by kernel, beside the plain backward and the bound;
 7. the reference check: the biometric stages on the card vs on the CPU;
 8. exact main path: ``run_biometric`` on the card once per match dtype,
    over a 4-shard watchlist of the 10 pipeline subjects plus 1,048,576
@@ -142,10 +161,13 @@ Phases, each printing its lines; any failure exits non-zero:
    each.  For each model: one microbatch's loss and every gradient with
    the kernels, with their plain versions and with the planted fault,
    on the same weights and batch (the kernels' gradients wait on the
-   host), the loss held by its relative error and each leaf's gradient
-   by its relative Frobenius error against the plain run's, each bound
-   between the readings and the planted fault's; the launches of that
-   microbatch (each block twice: forward and remat's recompute); then
+   host; the kernels' run with the plain backwards patched to raise, so
+   its gradients come from the backward kernels), the loss held by its
+   relative error and each leaf's gradient by its relative Frobenius
+   error against the plain run's, each bound between the readings and
+   the planted fault's; the launches of that microbatch (each block
+   twice: forward and remat's recompute; one backward kernel an
+   attention application and a Mamba-2 layer); then
    ``train.main`` for TRAIN_STEPS steps, the loss falling, and for
    tinyllama a second run that crashes at TRAIN_FAIL_AT, restores the
    step-TRAIN_CKPT_EVERY checkpoint and replays, its final loss within
@@ -154,8 +176,9 @@ Phases, each printing its lines; any failure exits non-zero:
    run traced in place (``TRAIN_TRACES``), the device idle share of one
    step against its own wall time (the device's activity alone traced,
    the least the profiler adds on the host), and the device ms of the
-   flash and SSD forwards, of the plain backwards and of the rest in
-   the next (the host's activity traced too);
+   flash and SSD forwards, of the backward kernels and of the rest in
+   the next (the host's activity traced too), beside the step walls
+   with the plain backwards (``TRAIN_WALL_PLAIN``);
 13. the mesh (run after phase 6, before the serving phases): (a) the flash
    kernel at each serving shape's share of one rank of the production
    mesh's model axis (8): H / 8 query heads and the kv heads they read,
@@ -510,30 +533,31 @@ def bound(dtype, Q, N, D, k):
     return work_bound(dtype, nbytes, 2.0 * Q * N * D)
 
 
-def phase_build(modules):
-    """Build every kernel library at once, one nvcc each, and print each
-    build time and ptxas's report."""
-    def one(mod):
+def phase_build(builds):
+    """Build every kernel library at once, one nvcc each (``builds``: the
+    wrappers' build functions), and print each build time and ptxas's
+    report."""
+    def one(build):
         t0 = time.perf_counter()
-        lib = mod.build(verbose=True)
+        lib = build(verbose=True)
         return lib, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(len(modules)) as pool:
-        built = list(pool.map(one, modules))
+    with ThreadPoolExecutor(len(builds)) as pool:
+        built = list(pool.map(one, builds))
     for lib, secs in built:
         print(f"[build] {lib.relative_to(ROOT)} in {secs:.1f} s")
 
 
-def sass_counts(mod, ops):
-    """How many of each instruction of ``ops`` the built library of
-    ``mod`` holds, from ``cuobjdump -sass``."""
+def sass_counts(build, ops):
+    """How many of each instruction of ``ops`` the library that ``build``
+    (a wrapper's build function) gives holds, from ``cuobjdump -sass``."""
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass", str(mod.build())], check=True,
+    sass = subprocess.run([tool, "-sass", str(build())], check=True,
                           capture_output=True, text=True).stdout
     counts = {op: sum(op in line for line in sass.splitlines())
               for op in ops}
-    print(f"[sass] {mod.build().relative_to(ROOT)}: "
+    print(f"[sass] {build().relative_to(ROOT)}: "
           + ", ".join(f"{n} {op}" for op, n in counts.items()))
     return counts
 
@@ -541,16 +565,21 @@ def sass_counts(mod, ops):
 def phase_sass(FA, SSD):
     """The flash library's bf16 path must issue tensor-core (HGMMA) and
     TMA loads (UTMALDG), the SSD library's staged path tensor-core
-    instructions (HMMA or HGMMA)."""
-    flash = sass_counts(FA, ("HGMMA", "UTMALDG"))
+    instructions (HMMA or HGMMA), the flash backward library's bf16 path
+    tensor-core instructions (HMMA)."""
+    flash = sass_counts(FA.build, ("HGMMA", "UTMALDG"))
     if not all(flash.values()):
         raise AssertionError(f"the flash library's bf16 path issues no "
                              f"tensor-core or no TMA loads: {flash}")
-    ssd = sass_counts(SSD, ("HMMA", "HGMMA"))
+    ssd = sass_counts(SSD.build, ("HMMA", "HGMMA"))
     if not any(ssd.values()):
         raise AssertionError(f"the SSD library issues no tensor-core "
                              f"instructions: {ssd}")
-    return flash, ssd
+    flash_bwd = sass_counts(FA.build_backward, ("HMMA",))
+    if not flash_bwd["HMMA"]:
+        raise AssertionError("the flash backward library's bf16 path issues "
+                             "no tensor-core instructions")
+    return flash, ssd, flash_bwd
 
 
 def fault_top_score(s, i):
@@ -1859,6 +1888,263 @@ def phase_ssd(torch, SSD):
     return errs, timings
 
 
+# phases 5 and 6, the backward kernels: each gradient against the plain
+# backward's by its relative Frobenius error; each bound sits between the
+# readings and a planted 5 % fault's (PERF.md §6)
+FLASH_BWD_REL = {"fp32": 1e-4, "bf16": 1e-2}
+SSD_BWD_REL = {"fp32": 1e-4, "bf16": 1e-3}
+# the forward's lse against the plain logsumexp: max |error| / (1 + |lse|)
+LSE_TOL = 1e-5
+# the training shapes (one microbatch) the backwards are timed at:
+# tinyllama's GQA (16 x 2048 in 2 microbatches), zamba2's shared MHA block
+# and its Mamba-2 layers (4 x 2048 in 2)
+FLASH_TRAIN = {"gqa": (8, 32, 4, 2048, 2048, 64, 64, True, 0),
+               "mha": (2, 32, 32, 2048, 2048, 80, 80, True, 0)}
+SSD_TRAIN = (2, 2048, 80, 64, 64, 256)
+# SSD shapes on the backward's general path: P or N above 64, and a chunk
+# too long for the fast path's shared memory (the per-row arrays in global
+# scratch)
+SSD_BWD_GENERAL = (1, 256, 2, 128, 96, 128)
+SSD_BWD_LONG = (1, 4096, 4, 64, 64, 4096)
+
+
+def flash_bwd_shapes():
+    """(shape, as the model's strided views) of phase 5's backward check:
+    the serving shapes' masks and head dims at batch 1 or 2, the smoke
+    MLA pair (24, 16), which the wrapper pads to (32, 32), and a window
+    with Sq >= Sk + window, so that rows see no key."""
+    out = [((2 if name in ("mha", "gqa", "enc", "cross") else 1, *sh[1:]),
+            True) for name, sh in FLASH_SERVE.items()]
+    return out + [((2, 4, 4, 48, 48, 24, 16, True, 0), False),
+                  ((1, 4, 2, 600, 256, 64, 64, True, 100), False)]
+
+
+def planted_grad(t):
+    """A copy of ``t`` with the later half of its elements PLANT times too
+    large."""
+    f = t.detach().clone().reshape(-1)
+    f[f.numel() // 2:] *= PLANT
+    return f.reshape(t.shape)
+
+
+def check_grads(torch, what, got, again, want, names, bound):
+    """Each gradient of ``got`` against ``want``'s by its relative
+    Frobenius error, within ``bound``; ``again`` (a second call) equal bit
+    for bit; a planted fault rejected.  Returns (largest error, smallest
+    planted reading, largest max abs error)."""
+    err, caught, abs_err = 0.0, math.inf, 0.0
+    for name, g, g2, w in zip(names, got, again, want):
+        if g.dtype != w.dtype or g.shape != w.shape or \
+                not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{what}: {name} is {g.dtype} "
+                                 f"{tuple(g.shape)}, the plain version's "
+                                 f"{w.dtype} {tuple(w.shape)}, or not finite")
+        if not torch.equal(g, g2):
+            raise AssertionError(f"{what}: two calls on the same inputs "
+                                 f"differ in {name}")
+        e = rel_fro(torch, g, w)
+        bad = rel_fro(torch, planted_grad(g), w)
+        if not e <= bound < bad:
+            raise AssertionError(f"{what}: {name} relative error {e:.3g}, "
+                                 f"planted fault {bad:.3g}, bound {bound}")
+        err, caught = max(err, e), min(caught, bad)
+        abs_err = max(abs_err, float((g.float() - w.float()).abs().max()))
+    return err, caught, abs_err
+
+
+def flash_kernel_grads(torch, FA, q, k, v, do, causal, window):
+    """(dq, dk, dv) through ``FlashAttention`` on the card: the forward
+    instance that writes lse, then the backward kernels."""
+    ins = [t.detach().requires_grad_() for t in (q, k, v)]
+    o = FA.flash_attention_cuda(*ins, causal=causal, window=window)
+    return torch.autograd.grad(o, ins, do)
+
+
+def flash_bwd_work(shape, dtype):
+    """(bytes, operations) of one backward call: q, k, v, o, dO and lse
+    read once, dq, dk and dv written once; 2.5 times the forward's flops
+    (S and dP recomputed, dV, dK and dQ: ``flash_work``)."""
+    B, H, Kh, Sq, Sk, D, Dv = shape[:7]
+    item = 4 if dtype == "fp32" else 2
+    nbytes = item * (2 * B * H * Sq * (D + Dv) + 2 * B * Kh * Sk * (D + Dv)) \
+        + 4 * B * H * Sq
+    return nbytes, 2.5 * flash_work(shape, dtype)[1]
+
+
+def phase_flash_backward(torch, FA):
+    """Phase 5's backward: the kernels against ``flash_attention_backward``
+    (autograd through the plain version) on ``flash_bwd_shapes()`` in both
+    dtypes, the forward's lse against the plain logsumexp; then timed at
+    the training shapes beside the plain backward, the library's
+    (``scaled_dot_product_attention``'s backward) and the bound.  Returns
+    ({dtype: (max abs error, launches in the check)}, {(dtype, name):
+    timings})."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=DEV).manual_seed(2026)
+    errs, timings = {}, {}
+    for dtype in LM_DTYPES:
+        err, caught, abs_err, lse_err, n = 0.0, math.inf, 0.0, 0.0, 0
+        launched = FA.backward_launches
+        for shape, model_layout in flash_bwd_shapes():
+            causal, window = shape[7], shape[8]
+            q, k, v = flash_inputs(torch, shape, dtype, gen, model_layout)
+            B, H, Sq, Dv = shape[0], shape[1], shape[3], shape[6]
+            do = torch.randn((B, H, Sq, Dv), generator=gen,
+                             device=DEV).to(q.dtype)
+            got = flash_kernel_grads(torch, FA, q, k, v, do, causal, window)
+            again = flash_kernel_grads(torch, FA, q, k, v, do, causal,
+                                       window)
+            torch.cuda.synchronize()
+            want = FA.flash_attention_backward(q, k, v, do, causal=causal,
+                                               window=window)
+            e, c, a = check_grads(torch, f"flash backward {dtype} {shape}",
+                                  got, again, want, ("dq", "dk", "dv"),
+                                  FLASH_BWD_REL[dtype])
+            _, lse = FA.flash_attention_lse_op(q, k, v, causal, window)
+            plain = FA.flash_lse_plain(q, k, causal=causal, window=window)
+            le = float(((lse - plain).abs() / (1 + plain.abs())).max())
+            if not le <= LSE_TOL:
+                raise AssertionError(f"flash {dtype} {shape}: lse differs "
+                                     f"from the plain logsumexp by {le:.3g}")
+            err, caught, abs_err = max(err, e), min(caught, c), \
+                max(abs_err, a)
+            lse_err, n = max(lse_err, le), n + 1
+            del q, k, v, do, got, again, want, lse, plain
+        errs[dtype] = (abs_err, FA.backward_launches - launched)
+        print(f"[flash-bwd] {dtype}: backward kernels == plain backward on "
+              f"{n} shapes (the serving shapes' masks and head dims at "
+              f"batch 1-2, MLA 24/16 padded, rows that see no key): largest "
+              f"relative error of dq, dk, dv {err:.3g} (bound "
+              f"{FLASH_BWD_REL[dtype]}; max abs {abs_err:.3g}), a planted "
+              f"{PLANT - 1:.0%} fault reads {caught:.3g} or more; two calls "
+              f"bit-identical; the forward's lse vs the plain logsumexp "
+              f"{lse_err:.3g} (bound {LSE_TOL})")
+        for name, shape in FLASH_TRAIN.items():
+            B, H, Kh, Sq, Sk, D, Dv, causal, window = shape
+            q, k, v = flash_inputs(torch, shape, dtype, gen, True)
+            do = torch.randn((B, H, Sq, Dv), generator=gen,
+                             device=DEV).to(q.dtype)
+            o, lse = FA.flash_attention_lse_op(q, k, v, causal, window)
+            kms, kcall = timed(
+                torch, lambda *a: FA.flash_attention_backward_op(
+                    *a, causal, window), [(q, k, v, o, lse, do)], iters=5,
+                what=f"flash backward {dtype} {name}")
+            split = kernel_split(torch, lambda: FA.flash_attention_backward_op(
+                q, k, v, o, lse, do, causal, window))
+            pms, _ = timed(torch, lambda *a: FA.flash_attention_backward(
+                *a, causal=causal, window=window), [(q, k, v, do)], iters=2,
+                what=f"flash plain backward {dtype} {name}")
+            lq, lk, lv = (t.detach().contiguous().requires_grad_()
+                          for t in (q, k, v))
+            lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal,
+                                                enable_gqa=H != Kh)
+            lms, _ = timed(torch, lambda: torch.autograd.grad(
+                lo, (lq, lk, lv), do, retain_graph=True), [()], iters=5,
+                what=f"library backward {dtype} {name}")
+            fms, _ = timed(torch, lambda *a: FA.flash_attention_lse_op(
+                *a, causal, window), [(q, k, v)], iters=5,
+                what=f"flash forward {dtype} {name}")
+            bms, by = work_bound(dtype, *flash_bwd_work(shape, dtype))
+            timings[(dtype, name)] = (kms, pms, lms, bms, by, fms, split)
+            print(f"[flash-bwd] {dtype} {name} {shape[:7]} causal: "
+                  f"kernel_ms={kms:.4f} (per call {kcall:.4f}; "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+                  + f"; the forward {fms:.4f}) plain_ms={pms:.4f} "
+                  f"library_ms={lms:.4f} "
+                  f"bound_ms={bms:.4f} ({by}); the kernels at "
+                  f"{bms / kms:.1%} of the bound, the library at "
+                  f"{bms / lms:.1%}")
+            del q, k, v, do, o, lse, lq, lk, lv, lo
+    return errs, timings
+
+
+def ssd_grad_inputs(torch, shape, dtype, gen, model_layout=False):
+    """``ssd_inputs`` as leaves that require grad, and a dy."""
+    ins = [t.detach().requires_grad_() for t in
+           ssd_inputs(torch, shape, dtype, gen, model_layout)]
+    Bt, L, H, P = shape[:4]
+    return ins, torch.randn((Bt, L, H, P), generator=gen, device=DEV)
+
+
+def ssd_bwd_work(shape, dtype):
+    """(bytes, operations) of one SSD backward: x, dt, A, B, C and dy read
+    once, dx, ddt, dA, dB and dC written once; three times the forward's
+    flops (``ssd_work``)."""
+    Bt, L, H, P, N, c = shape
+    item = 4 if dtype == "fp32" else 2
+    nbytes = 2 * (item * (Bt * L * H * P + 2 * Bt * L * N) + 4 * Bt * L * H
+                  + 4 * H) + 4 * Bt * L * H * P
+    return nbytes, 3 * ssd_work(shape, dtype)[1]
+
+
+def phase_ssd_backward(torch, SSD):
+    """Phase 6's backward: the kernels against ``mamba2_ssd_backward`` at
+    zamba2's training microbatch (the model's strided slices) and on one
+    shape of the backward's general path, in both dtypes; then timed at
+    the training shape beside the plain backward and the bound.  Returns
+    ({dtype: (max abs error, launches in the check)}, {dtype: timings})."""
+    gen = torch.Generator(device=DEV).manual_seed(2027)
+    errs, timings = {}, {}
+    names = ("dx", "ddt", "dA", "dB", "dC")
+    for dtype in LM_DTYPES:
+        err, caught, abs_err, paths = 0.0, math.inf, 0.0, []
+        launched = SSD.backward_launches
+        for shape, model_layout in ((SSD_TRAIN, True),
+                                    (SSD_BWD_GENERAL, False),
+                                    (SSD_BWD_LONG, False)):
+            ins, dy = ssd_grad_inputs(torch, shape, dtype, gen, model_layout)
+            runs = []
+            for _ in range(2):
+                y, _ = SSD.mamba2_ssd_cuda(*ins, chunk=shape[5])
+                runs.append(torch.autograd.grad(y, ins, dy))
+            torch.cuda.synchronize()
+            paths.append(SSD.last_backward_plan)
+            if SSD.last_backward_plan != SSD.plan_backward(*shape[3:]):
+                raise AssertionError(f"ssd backward {shape}: the "
+                                     f"{SSD.last_backward_plan} path ran")
+            want = SSD.mamba2_ssd_backward(*(t.detach() for t in ins), dy,
+                                           chunk=shape[5])
+            e, c, a = check_grads(torch, f"ssd backward {dtype} {shape}",
+                                  *runs, want, names, SSD_BWD_REL[dtype])
+            err, caught, abs_err = max(err, e), min(caught, c), \
+                max(abs_err, a)
+            del ins, dy, runs, want, y
+        errs[dtype] = (abs_err, SSD.backward_launches - launched)
+        print(f"[ssd-bwd] {dtype}: backward kernels == plain backward at "
+              f"{SSD_TRAIN} (strided, {paths[0]} path), {SSD_BWD_GENERAL}"
+              f" ({paths[1]} path) and {SSD_BWD_LONG} ({paths[2]} path): "
+              f"largest relative error of dx, ddt, dA, "
+              f"dB, dC {err:.3g} (bound {SSD_BWD_REL[dtype]}; max abs "
+              f"{abs_err:.3g}), a planted {PLANT - 1:.0%} fault reads "
+              f"{caught:.3g} or more; two calls bit-identical")
+        ins, dy = ssd_grad_inputs(torch, SSD_TRAIN, dtype, gen, True)
+        args = [(*(t.detach() for t in ins), dy)]
+        c = SSD_TRAIN[5]
+        kms, kcall = timed(torch, lambda *a: SSD.mamba2_ssd_backward_op(
+            *a, c), args, iters=5, what=f"ssd backward {dtype}")
+        split = kernel_split(torch, lambda: SSD.mamba2_ssd_backward_op(
+            *args[0], c))
+        pms, _ = timed(torch, lambda *a: SSD.mamba2_ssd_backward(
+            *a, chunk=c), args, iters=2, what=f"ssd plain backward {dtype}")
+        fwd, _ = timed(torch, lambda *a: SSD.mamba2_ssd_cuda(*a[:5], chunk=c),
+                       args, iters=5, what=f"ssd forward {dtype}")
+        work = ssd_bwd_work(SSD_TRAIN, dtype)
+        bms, by = work_bound("tf32", *work)
+        fms, _ = work_bound("fp32", *work)
+        timings[dtype] = (kms, pms, bms, by, fms, SSD.last_backward_plan,
+                          split, fwd)
+        print(f"[ssd-bwd] {dtype} {SSD_TRAIN}: {SSD.last_backward_plan} "
+              f"path kernel_ms={kms:.4f} (per call {kcall:.4f}; "
+              + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+              + f"; the forward {fwd:.4f}) plain_ms={pms:.4f} "
+              f"library_ms=n/a bound_ms={bms:.4f} ({by}; the products at "
+              f"the TF32 tensor-core peak), {bms / kms:.1%} of it; "
+              f"fma_bound_ms={fms:.4f} (the products at the fp32 FMA peak), "
+              f"{fms / kms:.1%} of it")
+        del ins, dy, args
+    return errs, timings
+
+
 class Kernels:
     """Within the block, the model's kernel wrappers ``ops.flash_attention``
     and ``ops.mamba2_ssd`` are ``flash`` and ``ssd``."""
@@ -2534,7 +2820,7 @@ TRAIN_MICRO = 2
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 6, 3, 4
 # the clean run's steps (0-based) traced, with the activities each
 # records: the device's alone for the idle share, the host's too for the
-# device split (which matches kernels to the plain backwards' ranges)
+# device split (which matches kernels to the backwards' ranges)
 TRAIN_TRACES = {2: ("CUDA",), 3: ("CPU", "CUDA")}
 # the peak learning rate (train.main warms up over 20 steps): at full width
 # a fresh model's fp32 AdamW diverged after one update at 3e-4 (PERF.md §6)
@@ -2546,9 +2832,13 @@ TRAIN_LR = 1e-4
 TRAIN_LOSS_REL = 1e-6
 TRAIN_GRAD_REL = 1e-3
 RECOVER_TOL = 1e-3      # the reference's tests/test_system.py bound
-# the plain backwards' record_function ranges -> their share's name
+# the backwards' record_function ranges (around the backward kernels'
+# launches in ``FlashAttention`` / ``MambaSSD``) -> their share's name
 BACKWARD_RANGES = {"flash_attention.backward": "flash_backward",
                    "mamba2_ssd.backward": "ssd_backward"}
+# the fp32 steady step walls with the plain backwards (measured on one
+# H100), printed beside this run's
+TRAIN_WALL_PLAIN = {"tinyllama-1.1b": 9182.4, "zamba2-2.7b": 7416.4}
 
 
 def train_model(torch, arch):
@@ -2594,13 +2884,33 @@ def train_calls(cfg):
     return 2 * sum(flash_calls(cfg).values()), 2 * n_mamba
 
 
+def train_backward_calls(cfg):
+    """(flash, SSD) backward-kernel launches of one microbatch: one per
+    attention application and one per Mamba-2 layer."""
+    return tuple(n // 2 for n in train_calls(cfg))
+
+
+@contextlib.contextmanager
+def no_plain_backward(FA, SSD):
+    """Within the block the plain backwards raise: a gradient on the card
+    must come from the backward kernels."""
+    def boom(*a, **kw):
+        raise AssertionError("a plain backward ran on the card")
+    saved = FA.flash_attention_backward, SSD.mamba2_ssd_backward
+    FA.flash_attention_backward = SSD.mamba2_ssd_backward = boom
+    try:
+        yield
+    finally:
+        FA.flash_attention_backward, SSD.mamba2_ssd_backward = saved
+
+
 def backward_split(torch, prof):
     """Device ms of a trace: {"total", "flash", "ssd", "backward",
-    "flash_backward", "ssd_backward"}: every kernel; the flash and SSD
-    kernels (forwards and the recompute's); and the kernels launched
-    inside the plain backwards (the ``BACKWARD_RANGES`` record_function
-    ranges), matched to their launch calls by correlation id, in all and
-    by kernel."""
+    "flash_backward", "ssd_backward"}: every kernel; the kernels launched
+    inside the backwards (the ``BACKWARD_RANGES`` record_function ranges),
+    matched to their launch calls by correlation id, in all and by
+    kernel; and, of the rest, the flash and SSD forward kernels (the
+    forwards and the recompute's)."""
     from torch.autograd import DeviceType
     events = list(prof.profiler.kineto_results.events())
     ranges = sorted((e.start_ns(), e.end_ns(), BACKWARD_RANGES[e.name()])
@@ -2620,18 +2930,17 @@ def backward_split(torch, prof):
             continue
         ms, name = e.duration_ns() / 1e6, e.name()
         split["total"] += ms
-        if "flash_bf16_kernel" in name or "flash_f32_kernel" in name:
+        t = launched.get(e.correlation_id())
+        i = bisect.bisect_right(starts, t) - 1 if t is not None else -1
+        if i >= 0 and t <= ranges[i][1]:
+            split["backward"] += ms
+            split[ranges[i][2]] += ms
+        elif "flash_bf16_kernel" in name or "flash_f32_kernel" in name:
             split["flash"] += ms
         elif "ssd_" in name:
             split["ssd"] += ms
-        t = launched.get(e.correlation_id())
-        if t is not None:
-            i = bisect.bisect_right(starts, t) - 1
-            if i >= 0 and t <= ranges[i][1]:
-                split["backward"] += ms
-                split[ranges[i][2]] += ms
     if ranges and not split["backward"]:
-        raise AssertionError("train: no kernel matched the plain backward's "
+        raise AssertionError("train: no kernel matched the backwards' "
                              "ranges in the trace")
     return split
 
@@ -2653,14 +2962,18 @@ def train_check(torch, FA, SSD, arch):
     micro = {k: v[:B // n_micro] for k, v in batch.items()}
     torch.cuda.reset_peak_memory_stats()
     FA.launches = SSD.launches = 0
-    loss_k, g = loss_and_grads(torch, mdl, lm, cfg, micro,
-                               contextlib.nullcontext())
+    FA.backward_launches = SSD.backward_launches = 0
+    with no_plain_backward(FA, SSD):
+        loss_k, g = loss_and_grads(torch, mdl, lm, cfg, micro,
+                                   contextlib.nullcontext())
     launches = (FA.launches, SSD.launches)
+    bwd = (FA.backward_launches, SSD.backward_launches)
     peak_micro = torch.cuda.max_memory_allocated() / 2**30
-    if launches != train_calls(cfg):
+    if launches != train_calls(cfg) or bwd != train_backward_calls(cfg):
         raise AssertionError(f"train {arch}: a microbatch launched flash "
-                             f"{launches[0]}, ssd {launches[1]} times, want "
-                             f"{train_calls(cfg)}")
+                             f"{launches[0]}, ssd {launches[1]} times, the "
+                             f"backwards {bwd}, want {train_calls(cfg)} and "
+                             f"{train_backward_calls(cfg)}")
     # the kernels' gradients wait on the host: two sets of zamba2's fp32
     # gradients and its weights would crowd the card
     g_kernels = {n: t.to("cpu") for n, t in g.items()}
@@ -2681,13 +2994,14 @@ def train_check(torch, FA, SSD, arch):
     n_fa, n_ssd = launches
     print(f"[train-check] {arch}: fp32, {cfg.n_layers} layers x d "
           f"{cfg.d_model}, batch {B} x {S} in {n_micro} microbatches; one "
-          f"microbatch's loss {loss_k:.6f} and gradients, kernels vs plain: "
+          f"microbatch's loss {loss_k:.6f} and gradients, kernels (forward "
+          f"and backward, the plain backwards patched to raise) vs plain: "
           f"loss rel {l_err:.3g} (bound {TRAIN_LOSS_REL}), gradients max "
           f"rel {g_err:.3g} at {g_leaf} (bound {TRAIN_GRAD_REL}); planted "
           f"fault: loss rel {l_bad:.3g}, gradients {b_err:.3g} at {b_leaf}; "
           f"launches a microbatch flash={n_fa} ssd={n_ssd} (with remat's "
-          f"recompute); peak {peak_micro:.2f} GiB a microbatch; check took "
-          f"{t_check:.1f} s")
+          f"recompute), backward kernels flash={bwd[0]} ssd={bwd[1]}; peak "
+          f"{peak_micro:.2f} GiB a microbatch; check took {t_check:.1f} s")
     # (raised after the lines above, so that a failure shows every reading)
     if not (math.isfinite(loss_k) and l_err <= TRAIN_LOSS_REL < l_bad
             and g_err <= TRAIN_GRAD_REL < b_err):
@@ -2758,6 +3072,7 @@ def train_runs(torch, FA, SSD, arch):
                              if len(runs) > 1 else 0)
     traced = {}
     FA.launches = SSD.launches = 0
+    FA.backward_launches = SSD.backward_launches = 0
     for name, extra in runs:
         shutil.rmtree(ckpt, ignore_errors=True)
         buf = io.StringIO()
@@ -2785,12 +3100,16 @@ def train_runs(torch, FA, SSD, arch):
         torch.cuda.empty_cache()
     shutil.rmtree(ckpt, ignore_errors=True)
     launches = (FA.launches, SSD.launches)
+    bwd = (FA.backward_launches, SSD.backward_launches)
     cfg = lm_config(arch)       # no cuts: the published config
     want = tuple(n * n_steps * TRAIN_MICRO for n in train_calls(cfg))
-    if launches != want:
+    want_bwd = tuple(n * n_steps * TRAIN_MICRO
+                     for n in train_backward_calls(cfg))
+    if launches != want or bwd != want_bwd:
         raise AssertionError(f"train {arch}: train.main launched flash "
-                             f"{launches[0]}, ssd {launches[1]} times in "
-                             f"{n_steps} steps, want {want}")
+                             f"{launches[0]}, ssd {launches[1]} times, the "
+                             f"backwards {bwd}, in {n_steps} steps, want "
+                             f"{want} and {want_bwd}")
     final, losses, walls, peak, secs = out["clean"]
     # the steady steps: neither the first nor a traced one
     steady = [w for i, w in enumerate(walls)
@@ -2813,10 +3132,12 @@ def train_runs(torch, FA, SSD, arch):
                f"{out['recovered'][4]:.1f} s")
     print(f"[train] {arch}: train.main {TRAIN_STEPS} steps, loss "
           + " ".join(f"{x:.4f}" for x in losses)
-          + f"; steady step wall_ms={ms:.1f} tok/s="
+          + f"; steady step wall_ms={ms:.1f} (plain backwards: "
+          f"{TRAIN_WALL_PLAIN[arch]}) tok/s="
           f"{B * S / ms * 1e3:,.0f} peak {peak:.2f} GiB; clean run "
           f"{secs:.1f} s{txt}; launches flash={launches[0]} "
-          f"ssd={launches[1]} in {n_steps} steps")
+          f"ssd={launches[1]}, backward kernels flash={bwd[0]} "
+          f"ssd={bwd[1]} in {n_steps} steps")
     rest = split["total"] - split["flash"] - split["ssd"] - split["backward"]
     print(f"[train-time] {arch}: the clean run's untraced steady steps "
           f"wall_ms={ms:.1f}; step {i_idle + 1} traced (device only) "
@@ -2824,21 +3145,23 @@ def train_runs(torch, FA, SSD, arch):
           f"step {1 - busy / w_idle:.1%}; step {i_split + 1} traced (host "
           f"and device) wall_ms={w_split:.1f} device_ms="
           f"{split['total']:.1f} = flash forward {split['flash']:.1f} + ssd "
-          f"forward {split['ssd']:.1f} + plain backward "
+          f"forward {split['ssd']:.1f} + backward kernels "
           f"{split['backward']:.1f} (flash {split['flash_backward']:.1f}, "
           f"ssd {split['ssd_backward']:.1f}) + rest {rest:.1f}")
-    return launches
+    return launches, bwd
 
 
 def phase_train(torch, FA, SSD):
     """Phase 12: each model of TRAIN checked and trained; returns the
     training runs' launches by kernel name."""
-    launches = {"flash_attention[fp32]": 0, "mamba2_ssd[fp32]": 0}
+    names = ("flash_attention[fp32]", "mamba2_ssd[fp32]",
+             "flash_attention_backward[fp32]", "mamba2_ssd_backward[fp32]")
+    launches = dict.fromkeys(names, 0)
     for arch in TRAIN:
         train_check(torch, FA, SSD, arch)
-        n_fa, n_ssd = train_runs(torch, FA, SSD, arch)
-        launches["flash_attention[fp32]"] += n_fa
-        launches["mamba2_ssd[fp32]"] += n_ssd
+        fwd, bwd = train_runs(torch, FA, SSD, arch)
+        for name, n in zip(names, (*fwd, *bwd)):
+            launches[name] += n
     return launches
 
 
@@ -2968,6 +3291,7 @@ def kernel_launches(torch, FA, SSD, fn, what, tries=TRACE_TRIES):
     the same values) may have more than one."""
     for attempt in range(tries):
         FA.launches = SSD.launches = 0
+        FA.backward_launches = SSD.backward_launches = 0
         res, inside = marked_trace(torch, fn, TRACE_PAD_S if attempt else 0.0)
         n = {"flash": FA.launches, "ssd": SSD.launches}
         if not isinstance(inside, str):
@@ -3194,6 +3518,8 @@ def mesh_train(torch, FA, SSD, shd, mdl, mesh):
             (_, _, met), n = kernel_launches(
                 torch, FA, SSD, lambda: step(lm, state, b, 0),
                 f"{arch} {name} train step", tries=1)
+            n = {**n, "flash_backward": FA.backward_launches,
+                 "ssd_backward": SSD.backward_launches}
             _, ms = wall_ms(torch, lambda: step(lm, state, b, 1))
         out[name] = (met, {k: shd.full_tensor(p.detach()) for k, p in
                            named_leaves(lm).items()}, n, ms)
@@ -3205,7 +3531,7 @@ def mesh_train(torch, FA, SSD, shd, mdl, mesh):
     for k in p0:
         held_equal(torch, f"train parameter {k} after two steps", p1[k],
                    p0[k])
-    if n1 != n0:
+    if n1 != n0 or not n1["flash_backward"]:
         raise AssertionError(f"mesh: the sharded train step launched {n1}, "
                              f"the unsharded {n0}")
     print(f"[mesh] {arch} fp32 train ({rules}, {B} x {S} in {TRAIN_MICRO} "
@@ -3243,7 +3569,8 @@ def phase_mesh(torch, FA, SSD, serve):
         fp32 = mesh_train(torch, FA, SSD, shd, mdl, mesh)
     finally:
         dist.destroy_process_group()
-    out = {}
+    out = {"flash_attention_backward[fp32]": fp32["flash_backward"],
+           "mamba2_ssd_backward[fp32]": fp32["ssd_backward"]}
     for dt, n in (("bf16", bf16), ("fp32", fp32)):
         out[f"flash_attention[{dt}]"] = n["flash"]
         out[f"mamba2_ssd[{dt}]"] = n["ssd"]
@@ -3354,15 +3681,18 @@ def main() -> int:
 
     card = card_line()
     print(f"[card] {card}")
-    phase_build([gm, A, FA, SSD])
-    sass, ssd_sass = phase_sass(FA, SSD)
+    phase_build([gm.build, A.build, FA.build, FA.build_lse, FA.build_backward,
+                 SSD.build, SSD.build_backward])
+    sass, ssd_sass, bwd_sass = phase_sass(FA, SSD)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     errs, timings, rounds = phase_kernel(torch, gm)
     r_errs, r_timings, r_rounds = phase_rescore(torch, gm, A)
     phase_keystream(torch)
     f_errs, f_timings = phase_flash(torch, FA)
+    fb_errs, fb_timings = phase_flash_backward(torch, FA)
     s_errs, s_timings = phase_ssd(torch, SSD)
+    sb_errs, sb_timings = phase_ssd_backward(torch, SSD)
     # phase 13 right after the kernel phases: after the serving phases 7-9
     # short profiler traces on the card came back without their markers on
     # most tries, and after the LM phases empty (PERF.md §6, PR 24)
@@ -3477,6 +3807,51 @@ def main() -> int:
             "fma_bound_ms": fms, "library_ms": None, "path": path,
             "stages_ms": stages, "sass": ssd_sass,
             "shape": f"Bt=8 L=2048 H=80 P=64 N=64 chunk=256 {dtype}"})
+    for dtype in LM_DTYPES:
+        name = f"flash_attention_backward[{dtype}]"
+        kms, pms, lms, bms, by, fms, split = fb_timings[(dtype, "gqa")]
+        mha = fb_timings[(dtype, "mha")]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": "none: the reference differentiates its jnp "
+                        "attention (the gradient of "
+                        "src/repro/kernels/flash_attention.py:95's function)",
+            "launches": train_launches.get(name, 0)
+            + mesh_launches.get(name, 0),
+            "launches_train": train_launches.get(name, 0),
+            "launches_mesh": mesh_launches.get(name, 0),
+            "launches_check": fb_errs[dtype][1],
+            "max_abs_err": fb_errs[dtype][0],
+            "ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+            "library_ms": lms, "forward_ms": fms, "kernels_ms": split,
+            "sass": bwd_sass,
+            "shape": "B=8 H=32 Kh=4 S=2048 D=64 causal (tinyllama's "
+                     "training microbatch)",
+            "mha": {"shape": "B=2 H=32 Kh=32 S=2048 D=80 causal (zamba2's)",
+                    "ms": mha[0], "plain_ms": mha[1], "library_ms": mha[2],
+                    "bound_ms": mha[3], "bound_by": mha[4],
+                    "forward_ms": mha[5], "kernels_ms": mha[6]}})
+    for dtype in LM_DTYPES:
+        name = f"mamba2_ssd_backward[{dtype}]"
+        kms, pms, bms, by, fms, path, split, fwd = sb_timings[dtype]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/mamba2_ssd_bwd.cu",
+            "replaces": "none: the reference differentiates its jnp "
+                        "ssd_chunked (the gradient of "
+                        "src/repro/kernels/mamba2_ssd.py:82's function)",
+            "launches": train_launches.get(name, 0)
+            + mesh_launches.get(name, 0),
+            "launches_train": train_launches.get(name, 0),
+            "launches_mesh": mesh_launches.get(name, 0),
+            "launches_check": sb_errs[dtype][1],
+            "max_abs_err": sb_errs[dtype][0],
+            "ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+            "fma_bound_ms": fms, "library_ms": None, "path": path,
+            "stages_ms": split, "forward_ms": fwd,
+            "shape": "Bt=2 L=2048 H=80 P=64 N=64 chunk=256 (zamba2's "
+                     "training microbatch)"})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,8 @@ checkpointing and an optional simulated mid-run node failure + recovery.
 
 The port's counterpart of ``examples/train_lm.py``: the same model and
 flags through ``repro_torch.launch.train``.  On the card (the default) the
-attention runs on the hand-written flash kernel; ``--device cpu`` runs the
-kernel's plain version.
+attention runs on the hand-written flash kernels, forward and backward;
+``--device cpu`` runs the kernel's plain version and its gradient.
 
 Run:  PYTHONPATH=src python examples/train_lm_torch.py [--steps 200]
           [--fail-at 120] [--device cpu]

@@ -1,11 +1,15 @@
 #!/usr/bin/env python3
-"""Time this checkout's gallery-match, cell-rescore or SSD kernel against
-another checkout's, on one GPU, in one process.
+"""Time this checkout's gallery-match, cell-rescore, flash-attention or
+SSD kernel (forward or backward) against another checkout's, on one GPU,
+in one process.
 
     python3 kernel_compare.py OTHER_CHECKOUT [--shapes Q:k,...] [--qk N]
                               [--exact]
     python3 kernel_compare.py OTHER_CHECKOUT --kernel rescore [--exact]
-    python3 kernel_compare.py OTHER_CHECKOUT --kernel ssd
+    python3 kernel_compare.py OTHER_CHECKOUT --kernel flash [--exact]
+    python3 kernel_compare.py OTHER_CHECKOUT --kernel ssd [--exact]
+    python3 kernel_compare.py OTHER_CHECKOUT --kernel flash-backward
+    python3 kernel_compare.py OTHER_CHECKOUT --kernel ssd-backward
 
 OTHER_CHECKOUT is another checkout of this repository, for example the
 parent commit unpacked with ``git archive``.  Each kernel is built with
@@ -32,8 +36,21 @@ two held to each other on every call of a round (scores within
 (``chip_smoke.SSD_SERVE``, as the model's strided views) in bf16 and fp32,
 y and the final state of the two held to ``chip_smoke``'s SSD bounds.
 
-``--exact`` (gallery, rescore): the two must agree bit for bit, scores
-and indices, as a change that keeps a kernel's arithmetic must.
+``--kernel flash``: the flash-attention forward (serving's instance: no
+graph, so no lse) at the ten serving shapes (``chip_smoke.FLASH_SERVE``,
+as the model's strided views) in bf16 and fp32, the outputs held to
+``chip_smoke.FLASH_TOL``.
+
+``--kernel flash-backward`` / ``ssd-backward``: the gradient through each
+checkout's autograd Function (``FlashAttention``, ``MambaSSD``) at the
+training shapes (``chip_smoke.FLASH_TRAIN``, ``SSD_TRAIN``) in bf16 and
+fp32, one graph each, its backward timed alone (``retain_graph``); the
+gradients held to ``chip_smoke.FLASH_BWD_REL`` / ``SSD_BWD_REL``.  A
+checkout without backward kernels differentiates its plain versions.
+
+``--exact`` (gallery, rescore, flash, ssd and the backwards): the two
+must agree bit for bit, as a change that keeps a kernel's arithmetic
+must.
 
 Prints the card, one line per shape, and a JSON object with every time.
 Exits non-zero without a GPU.
@@ -46,6 +63,7 @@ import importlib.util
 import json
 import subprocess
 import sys
+import types
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -53,12 +71,14 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 
-def load_other(other: Path, _build, name: str, source: str = None):
+def load_other(other: Path, _build, name: str, sources=None):
     """The other checkout's wrapper module ``name`` (``gallery_match``,
-    ``ann_match`` or ``mamba2_ssd``), bound to its own kernel
-    ``csrc/{source}.cu`` (``source`` defaults to ``name``) built into this
-    checkout's build directory."""
-    source = source or name
+    ``ann_match``, ``flash_attention`` or ``mamba2_ssd``), bound to its own
+    kernels ``csrc/{source}.cu`` for each of ``sources`` (default:
+    ``name``; a source the other checkout lacks is skipped) built into
+    this checkout's build directory.  The module reads its own sources
+    (``_build.CSRC``) and binds its own libraries."""
+    sources = sources or (name,)
     src = other / "src" / "repro_torch" / "kernels"
     spec = importlib.util.spec_from_file_location(f"other_{name}",
                                                   src / f"{name}.py")
@@ -66,26 +86,36 @@ def load_other(other: Path, _build, name: str, source: str = None):
     sys.modules[spec.name] = mod          # for its dataclasses
     spec.loader.exec_module(mod)
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = _build.BUILD_DIR / f"other_{source}.so"
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
-                    str(src / "csrc" / f"{source}.cu")], check=True)
-    lib = ctypes.CDLL(str(so))
-    own = _build.library
-    _build.library = lambda name: lib    # its wrapper binds through ours
-    try:
-        mod._library()
-    finally:
-        _build.library = own
+
+    def compile_one(source):
+        so = _build.BUILD_DIR / f"other_{source}.so"
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
+                        str(src / "csrc" / f"{source}.cu")], check=True)
+        return source, ctypes.CDLL(str(so))
+
+    present = [s for s in sources if (src / "csrc" / f"{s}.cu").exists()]
+    with ThreadPoolExecutor(len(present)) as pool:
+        libs = dict(pool.map(compile_one, present))
+    own = types.SimpleNamespace(**{k: v for k, v in vars(_build).items()
+                                   if not k.startswith("__")})
+    own.CSRC = src / "csrc"
+    own.library = lambda source: libs[source]
+    mod._build = own
+    mod._library()
     return mod
 
 
-def build_both(own, other: Path, _build, name: str, source: str = None):
-    """This checkout's module ``own`` built, and the other checkout's."""
-    with ThreadPoolExecutor(2) as pool:
-        mine = pool.submit(own.build)
+def build_both(own, other: Path, _build, name: str, sources=None,
+               builds=None):
+    """This checkout's module ``own`` built (``builds``: its build
+    functions, default ``own.build``), and the other checkout's."""
+    builds = builds or (own.build,)
+    with ThreadPoolExecutor(1 + len(builds)) as pool:
+        mine = [pool.submit(b) for b in builds]
         theirs = pool.submit(load_other, other.resolve(), _build, name,
-                             source)
-        mine.result()
+                             sources)
+        for m in mine:
+            m.result()
         return theirs.result()
 
 
@@ -145,7 +175,7 @@ def compare_gallery(cs, torch, _build, other, shapes_arg, qk, exact):
 def compare_rescore(cs, torch, _build, other, exact):
     from repro_torch.kernels import ann_match as A
     from repro_torch.kernels import gallery_match as gm
-    oA = build_both(A, other, _build, "ann_match", "cell_rescore")
+    oA = build_both(A, other, _build, "ann_match", ("cell_rescore",))
     gen = torch.Generator(device="cuda").manual_seed(99)
     rows = []
     for dtype in cs.DTYPES:
@@ -188,7 +218,7 @@ def compare_rescore(cs, torch, _build, other, exact):
     return rows
 
 
-def compare_ssd(cs, torch, _build, other):
+def compare_ssd(cs, torch, _build, other, exact):
     from repro_torch.kernels import mamba2_ssd as SSD
     ossd = build_both(SSD, other, _build, "mamba2_ssd")
     gen = torch.Generator(device="cuda").manual_seed(99)
@@ -198,7 +228,8 @@ def compare_ssd(cs, torch, _build, other):
         a = ossd.mamba2_ssd_cuda(*args[0])
         b = SSD.mamba2_ssd_cuda(*args[0])
         for what, got, want in zip(("y", "state"), b, a):
-            if not cs.ssd_close(torch, got, want):
+            if not cs.ssd_close(torch, got, want) or (
+                    exact and not torch.equal(got, want)):
                 raise AssertionError(
                     f"ssd {dtype}: the two kernels' {what} differ by "
                     f"{float((got - want).abs().max()):.3g} (atol "
@@ -217,10 +248,123 @@ def compare_ssd(cs, torch, _build, other):
     return rows
 
 
+def compare_flash(cs, torch, _build, other, exact):
+    from repro_torch.kernels import flash_attention as FA
+    ofa = build_both(FA, other, _build, "flash_attention")
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    rows = []
+    for dtype in cs.LM_DTYPES:
+        for name, shape in cs.FLASH_SERVE.items():
+            causal, window = shape[7], shape[8]
+            args = [cs.flash_inputs(torch, shape, dtype, gen, True)]
+            a = ofa.flash_attention_cuda(*args[0], causal=causal,
+                                         window=window)
+            b = FA.flash_attention_cuda(*args[0], causal=causal,
+                                        window=window)
+            err = cs.flash_err(torch, b, a, dtype)
+            same = torch.equal(a, b)
+            if not err <= cs.FLASH_TOL[dtype] or (exact and not same):
+                raise AssertionError(f"flash {dtype} {name}: the two "
+                                     f"kernels differ ({err:.3g})")
+            times = in_turns(cs, torch, lambda mod: (
+                lambda q, k, v, m=(ofa if mod == "other" else FA):
+                m.flash_attention_cuda(q, k, v, causal=causal,
+                                       window=window)), args)
+            o, t = (sum(v) / 2 for v in (times["other"], times["this"]))
+            rows.append({"dtype": dtype, "name": name, "shape": list(shape),
+                         "bit_identical": same, **times,
+                         "this_over_other": t / o})
+            print(f"[compare] flash {dtype} {name} {shape[:7]}: "
+                  f"bit-identical {same}; other {times['other'][0]:.4f} "
+                  f"{times['other'][1]:.4f} ms, this {times['this'][0]:.4f} "
+                  f"{times['this'][1]:.4f} ms, this/other {t / o:.3f}")
+            del args, a, b
+    return rows
+
+
+def graph_grads(torch, fn, inputs, grad):
+    """(the gradients, a function that runs the backward again): one graph
+    of ``fn`` on copies of ``inputs`` that require grad, kept
+    (``retain_graph``)."""
+    ins = [t.detach().requires_grad_() for t in inputs]
+    out = fn(*ins)
+    out = out[0] if isinstance(out, tuple) else out
+
+    def backward():
+        return torch.autograd.grad(out, ins, grad, retain_graph=True)
+    return backward(), backward
+
+
+def compare_backward(cs, torch, _build, other, kernel, exact):
+    """--kernel flash-backward / ssd-backward: each checkout's autograd
+    Function's backward at the training shapes, held to each other and
+    timed in turns."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import mamba2_ssd as SSD
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    if kernel == "flash-backward":
+        mine = FA
+        theirs = build_both(FA, other, _build, "flash_attention",
+                            ("flash_attention", "flash_attention_lse",
+                             "flash_attention_bwd"),
+                            (FA.build, FA.build_lse, FA.build_backward))
+        bound = cs.FLASH_BWD_REL
+        cases = []
+        for name, shape in cs.FLASH_TRAIN.items():
+            B, H, Kh, Sq, Sk, D, Dv, causal, window = shape
+            cases.append((name, shape, lambda dtype, shape=shape: (
+                cs.flash_inputs(torch, shape, dtype, gen, True),
+                torch.randn((shape[0], shape[1], shape[3], shape[6]),
+                            generator=gen, device="cuda")),
+                lambda mod, causal=causal, window=window: (
+                    lambda q, k, v: mod.flash_attention_cuda(
+                        q, k, v, causal=causal, window=window))))
+    else:
+        mine = SSD
+        theirs = build_both(SSD, other, _build, "mamba2_ssd",
+                            ("mamba2_ssd", "mamba2_ssd_bwd"),
+                            (SSD.build, SSD.build_backward))
+        bound = cs.SSD_BWD_REL
+        shape = cs.SSD_TRAIN
+        cases = [("zamba2", shape, lambda dtype: cs.ssd_grad_inputs(
+            torch, shape, dtype, gen, True),
+            lambda mod: (lambda *a: mod.mamba2_ssd_cuda(*a,
+                                                        chunk=shape[5])))]
+    rows = []
+    for dtype in cs.LM_DTYPES:
+        for name, shape, make, fn_of in cases:
+            inputs, grad = make(dtype)
+            grad = grad.to(inputs[0].dtype) if kernel == "flash-backward" \
+                else grad
+            ga, run_a = graph_grads(torch, fn_of(theirs), inputs, grad)
+            gb, run_b = graph_grads(torch, fn_of(mine), inputs, grad)
+            errs = [cs.rel_fro(torch, b, a) for a, b in zip(ga, gb)]
+            same = all(torch.equal(a, b) for a, b in zip(ga, gb))
+            if not max(errs) <= bound[dtype] or (exact and not same):
+                raise AssertionError(f"{kernel} {dtype} {name}: the two "
+                                     f"gradients differ ({errs})")
+            times = in_turns(cs, torch, lambda mod: (
+                run_a if mod == "other" else run_b), [()])
+            o, t = (sum(v) / 2 for v in (times["other"], times["this"]))
+            rows.append({"kernel": kernel, "dtype": dtype, "name": name,
+                         "shape": list(shape), "rel_errors": errs,
+                         "bit_identical": same, **times,
+                         "this_over_other": t / o})
+            print(f"[compare] {kernel} {dtype} {name} {tuple(shape)}: "
+                  f"gradients' relative errors "
+                  + ", ".join(f"{e:.3g}" for e in errs)
+                  + f" (bit-identical {same}); other "
+                  f"{times['other'][0]:.4f} ms, this {times['this'][0]:.4f} "
+                  f"ms, this/other {t / o:.3f}")
+            del inputs, grad, ga, gb, run_a, run_b
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(usage=__doc__)
     ap.add_argument("other", type=Path)
-    ap.add_argument("--kernel", choices=("gallery", "rescore", "ssd"),
+    ap.add_argument("--kernel", choices=("gallery", "rescore", "flash", "ssd",
+                                         "flash-backward", "ssd-backward"),
                     default="gallery")
     ap.add_argument("--shapes", default=None)
     ap.add_argument("--qk", type=int, default=None)
@@ -237,7 +381,12 @@ def main() -> int:
     print(f"[card] {card}")
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.kernel == "ssd":
-        rows = compare_ssd(cs, torch, _build, args.other)
+        rows = compare_ssd(cs, torch, _build, args.other, args.exact)
+    elif args.kernel == "flash":
+        rows = compare_flash(cs, torch, _build, args.other, args.exact)
+    elif args.kernel.endswith("-backward"):
+        rows = compare_backward(cs, torch, _build, args.other, args.kernel,
+                                args.exact)
     elif args.kernel == "rescore":
         rows = compare_rescore(cs, torch, _build, args.other, args.exact)
     else:

@@ -77,6 +77,8 @@
 #include <stdint.h>
 #include <stdio.h>
 
+#include "flash_head_dims.cuh"
+
 namespace {
 
 constexpr float kNeg = -2.0e38f;
@@ -666,12 +668,17 @@ __device__ __forceinline__ void pack_p(const float (&s)[BK / 2],
       pa[kk][j] = pack_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
 }
 
-template <int D, int DV>
+// LSE: also write each row's natural log-sum-exp of its masked scores to
+// lse (B, H, Sq) fp32 (training's forward, read by the backward kernels);
+// NEG for a row that no key is visible to, as the plain logsumexp gives
+// (log Sk is absorbed).  Serving instantiates LSE = false.
+template <int D, int DV, bool LSE>
 __global__ void __launch_bounds__(Tiles<D, DV>::kThreads, 1)
 flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                   const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv,
-                  __nv_bfloat16* __restrict__ o, const Params p) {
+                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                  const Params p) {
   using T = Tiles<D, DV>;
   constexpr int BK = T::BK, DA = T::DA, VA = T::VA, S = T::kStages;
   constexpr int BQ = T::BQ, NW = T::NW;
@@ -819,6 +826,11 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
       t += __shfl_xor_sync(0xffffffffu, t, 1);
       t += __shfl_xor_sync(0xffffffffu, t, 2);
       den[r] = fmaxf(t, 1e-20f);
+      // m is in units of s sl2: lse = ln 2 (m + log2 l)
+      const int qi = r ? row1 : row0;
+      if (LSE && (lane & 3) == 0 && qi < p.Sq)
+        lse[((long long)b * p.H + h) * p.Sq + qi] =
+            m[r] <= kNeg ? kNeg : (m[r] + log2f(t)) * 0.6931471805599453f;
     }
     __nv_bfloat16* ob = o + b * p.sob + h * p.soh;
 #pragma unroll
@@ -866,12 +878,13 @@ __host__ __device__ constexpr size_t f32_smem(int ri, int stages, int D,
                           (size_t)16 * ri * (kBK32 + 4));
 }
 
-// RI query rows and NC output columns a thread; BQ = 16 RI rows a block
-template <int RI, int NC>
+// RI query rows and NC output columns a thread; BQ = 16 RI rows a block;
+// LSE as the bf16 kernel's
+template <int RI, int NC, bool LSE>
 __global__ void __launch_bounds__(kF32Threads)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
-                 const Params p, const int stages) {
+                 float* __restrict__ lse, const Params p, const int stages) {
   extern __shared__ __align__(16) float smem[];
   constexpr int BQ = 16 * RI;
   const int D = p.D, Dv = p.Dv;
@@ -1033,6 +1046,9 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int qi = q_lo + ty + 16 * i;
     if (qi >= p.Sq) continue;
     const float den = fmaxf(l[i], 1e-20f);
+    if (LSE && tx == 0)
+      lse[((long long)b * p.H + h) * p.Sq + qi] =
+          m[i] <= kNeg ? kNeg : m[i] + logf(l[i]);
     float* orow = o + b * p.sob + h * p.soh + qi * p.sos;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
@@ -1093,9 +1109,9 @@ int make_map(CUtensorMap* map, const void* ptr, int d, int s, int heads,
   return r == CUDA_SUCCESS ? 0 : kErrTensorMap + (int)r;
 }
 
-template <int D, int DV>
+template <int D, int DV, bool LSE>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
-                const Params& p, cudaStream_t stream) {
+                float* lse, const Params& p, cudaStream_t stream) {
   using T = Tiles<D, DV>;
   static_assert(T::kSmem <= kMaxSmem, "the bf16 tiles exceed 227 KB");
   CUtensorMap tq, tk, tv;
@@ -1105,67 +1121,76 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   if (!err) err = make_map(&tv, v, DV, p.Sk, p.Kh, p.B, p.svs, p.svh, p.svb,
                            T::BK);
   if (err) return err;
-  auto kern = &flash_bf16_kernel<D, DV>;
+  auto kern = &flash_bf16_kernel<D, DV, LSE>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(p.B * p.H * ((p.Sq + T::BQ - 1) / T::BQ));
   kern<<<grid, T::kThreads, T::kSmem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), p);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, p);
   return (int)cudaGetLastError();
 }
 
 // double-buffered where two stages fit 227 KB, else single-buffered
-template <int RI, int NC>
+template <int RI, int NC, bool LSE>
 int launch_f32_nc(const void* q, const void* k, const void* v, void* o,
-                  const Params& p, cudaStream_t stream) {
+                  float* lse, const Params& p, cudaStream_t stream) {
   const int stages = f32_smem(RI, 2, p.D, p.Dv) <= (size_t)kMaxSmem ? 2 : 1;
   const size_t smem = f32_smem(RI, stages, p.D, p.Dv);
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  auto kern = &flash_f32_kernel<RI, NC>;
+  auto kern = &flash_f32_kernel<RI, NC, LSE>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(p.B * p.H * ((p.Sq + 16 * RI - 1) / (16 * RI)));
   kern<<<grid, kF32Threads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), p, stages);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, p, stages);
   return (int)cudaGetLastError();
 }
 
 // the fp32 register tile of head dims (D, DV): Dv / 16 output columns a
 // thread, and 8 query rows where one stage of 8-row tiles fits 227 KB,
 // else 4 (D = Dv = 192 and above)
-template <int D, int DV>
+template <int D, int DV, bool LSE>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
-               const Params& p, cudaStream_t st) {
+               float* lse, const Params& p, cudaStream_t st) {
   constexpr int RI = f32_smem(8, 1, D, DV) <= (size_t)kMaxSmem ? 8 : 4;
-  return launch_f32_nc<RI, DV / 16>(q, k, v, o, p, st);
+  return launch_f32_nc<RI, DV / 16, LSE>(q, k, v, o, lse, p, st);
 }
 
-// the one list of (D, Dv) pairs the kernels are instantiated for, in both
-// dtypes: every multiple of 16 up to 256 with Dv = D, and MLA's 192 / 128.
-// flash_attention.py reads it from here (supported_head_dims).
-#define FA_HEAD_DIMS(X)                                                     \
-  X(16, 16) X(32, 32) X(48, 48) X(64, 64) X(80, 80) X(96, 96) X(112, 112)  \
-  X(128, 128) X(144, 144) X(160, 160) X(176, 176) X(192, 192) X(208, 208) \
-  X(224, 224) X(240, 240) X(256, 256) X(192, 128)
-
-// any other pair is refused
+// any other pair is refused; LSE: the instances that also write lse
+template <bool LSE>
 int launch(int dtype, const void* q, const void* k, const void* v, void* o,
-           const Params& p, cudaStream_t st) {
-#define FA_CASE(D_, DV_)                                     \
-  if (p.D == D_ && p.Dv == DV_)                              \
-    return dtype ? launch_bf16<D_, DV_>(q, k, v, o, p, st)   \
-                 : launch_f32<D_, DV_>(q, k, v, o, p, st);
+           float* lse, const Params& p, cudaStream_t st) {
+#define FA_CASE(D_, DV_)                                                  \
+  if (p.D == D_ && p.Dv == DV_)                                           \
+    return dtype ? launch_bf16<D_, DV_, LSE>(q, k, v, o, lse, p, st)      \
+                 : launch_f32<D_, DV_, LSE>(q, k, v, o, lse, p, st);
   FA_HEAD_DIMS(FA_CASE)
 #undef FA_CASE
   return (int)cudaErrorInvalidValue;
 }
 
+Params make_params(int B, int H, int Kh, int Sq, int Sk, int D, int Dv,
+                   const long long* s, float scale, int causal, int window) {
+  return Params{B, H, Kh, Sq, Sk, D, Dv, s[0], s[1], s[2], s[3], s[4], s[5],
+                s[6], s[7], s[8], s[9], s[10], s[11], scale, causal, window};
+}
+
+bool bad_args(int dtype, int B, int H, int Kh, int Sq, int Sk, int window) {
+  return B < 1 || H < 1 || Kh < 1 || H % Kh != 0 || Sq < 1 || Sk < 1 ||
+         window < 0 || (dtype != 0 && dtype != 1);
+}
+
 }  // namespace
 
 extern "C" {
+
+// Serving's instances (LSE = false) in this library; training's (LSE =
+// true) in flash_attention_lse.cu's, which includes this file with
+// FA_TRAINING defined: two libraries that nvcc builds in parallel.
+#ifndef FA_TRAINING
 
 // dtype: 0 = fp32, 1 = bf16 (q, k, v and o alike).  strides holds 12 element
 // strides: q's, k's, v's and o's over (b, h, s), in that order; the feature
@@ -1177,15 +1202,31 @@ int fa_forward(int dtype, const void* q, const void* k, const void* v,
                void* o, int B, int H, int Kh, int Sq, int Sk, int D, int Dv,
                const long long* strides, float scale, int causal, int window,
                void* stream) {
-  if (B < 1 || H < 1 || Kh < 1 || H % Kh != 0 || Sq < 1 || Sk < 1 ||
-      window < 0 || (dtype != 0 && dtype != 1))
+  if (bad_args(dtype, B, H, Kh, Sq, Sk, window))
     return (int)cudaErrorInvalidValue;
-  Params p{B, H, Kh, Sq, Sk, D, Dv,
-           strides[0], strides[1], strides[2], strides[3], strides[4],
-           strides[5], strides[6], strides[7], strides[8], strides[9],
-           strides[10], strides[11], scale, causal, window};
-  return launch(dtype, q, k, v, o, p, static_cast<cudaStream_t>(stream));
+  return launch<false>(dtype, q, k, v, o, nullptr,
+                       make_params(B, H, Kh, Sq, Sk, D, Dv, strides, scale,
+                                   causal, window),
+                       static_cast<cudaStream_t>(stream));
 }
+
+#else
+
+// fa_forward that also writes lse, a contiguous fp32 (B, H, Sq): each row's
+// natural log-sum-exp of its masked scores (NEG where no key is visible)
+int fa_forward_lse(int dtype, const void* q, const void* k, const void* v,
+                   void* o, float* lse, int B, int H, int Kh, int Sq, int Sk,
+                   int D, int Dv, const long long* strides, float scale,
+                   int causal, int window, void* stream) {
+  if (bad_args(dtype, B, H, Kh, Sq, Sk, window) || !lse)
+    return (int)cudaErrorInvalidValue;
+  return launch<true>(dtype, q, k, v, o, lse,
+                      make_params(B, H, Kh, Sq, Sk, D, Dv, strides, scale,
+                                  causal, window),
+                      static_cast<cudaStream_t>(stream));
+}
+
+#endif  // FA_TRAINING
 
 const char* fa_error_string(int code) {
   static char msg[96];

@@ -33,10 +33,16 @@ rounded up to 16: q, k and v are zero-padded to P, which adds nothing to
 any score or output, the scale stays D^-1/2, and the output is cut back to
 Dv (a smoke config's MLA, (24, 16), runs so).
 
-Training differentiates through ``FlashAttention``: the kernel forward,
-and as backward the gradient of the plain version in plain PyTorch
-(``flash_attention_backward``), a sequence (or a block of queries) at a
-time.
+Training differentiates through ``FlashAttention``.  On the card its
+forward is the kernel's instance that also writes each row's log-sum-exp
+(``repro_torch::flash_attention_lse``, built from
+``csrc/flash_attention_lse.cu``), and its backward the hand-written
+backward kernels in ``csrc/flash_attention_bwd.cu`` (FlashAttention-2:
+dK and dV a key tile a block, dQ a query tile a block, no float atomics;
+``repro_torch::flash_attention_backward``).  On the CPU the backward is
+the gradient of the plain version in plain PyTorch
+(``flash_attention_backward``, a sequence or a block of queries at a
+time), which the kernels are held against on the card.
 
 The kernel is the operator ``repro_torch::flash_attention``
 (``torch.library.custom_op``, with a fake implementation and a flop
@@ -56,11 +62,15 @@ from repro_torch.kernels import _build, trace
 
 NEG = -2.0e38
 
-# launches of the CUDA kernel
+# launches of the CUDA forward kernel, and of the backward kernels (one a
+# backward call: its three kernels)
 launches = 0
+backward_launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
+_lse_lib = None
+_bwd_lib = None
 
 
 def build(verbose: bool = False):
@@ -70,19 +80,67 @@ def build(verbose: bool = False):
     return _build.build("flash_attention", verbose)
 
 
+def build_lse(verbose: bool = False):
+    """``build`` of the training forward, ``csrc/flash_attention_lse.cu``:
+    the forward's instances that also write each row's log-sum-exp, a
+    library of their own so that nvcc builds the two halves in parallel."""
+    return _build.build("flash_attention_lse", verbose)
+
+
+def build_backward(verbose: bool = False):
+    """``build`` of the backward kernels, ``csrc/flash_attention_bwd.cu``."""
+    return _build.build("flash_attention_bwd", verbose)
+
+
+_ci, _vp, _cf = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
+_strides = ctypes.POINTER(ctypes.c_longlong)
+# the C functions of the libraries built from csrc/flash_attention.cu,
+# csrc/flash_attention_lse.cu and csrc/flash_attention_bwd.cu: (argument
+# types, result type)
+_SIGNATURES = {
+    "fa_forward": ([_ci, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci,
+                    _ci, _strides, _cf, _ci, _ci, _vp], _ci),
+    "fa_error_string": ([_ci], ctypes.c_char_p),
+}
+_LSE_SIGNATURES = {
+    "fa_forward_lse": ([_ci, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci,
+                        _ci, _ci, _ci, _strides, _cf, _ci, _ci, _vp], _ci),
+    "fa_error_string": ([_ci], ctypes.c_char_p),
+}
+_BWD_SIGNATURES = {
+    "fa_backward": ([_ci, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+                     _ci, _ci, _ci, _ci, _ci, _ci, _ci, _strides, _cf, _ci,
+                     _ci, _cf, _vp], _ci),
+    "fa_backward_error_string": ([_ci], ctypes.c_char_p),
+}
+
+
+def _bind(name, signatures):
+    lib = _build.library(name)
+    for fn, (args, res) in signatures.items():
+        getattr(lib, fn).argtypes, getattr(lib, fn).restype = args, res
+    return lib
+
+
 def _library():
     global _lib
     if _lib is None:
-        lib = _build.library("flash_attention")
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.fa_forward.argtypes = [ci, vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                                   ci, ci, ctypes.POINTER(ctypes.c_longlong),
-                                   ctypes.c_float, ci, ci, vp]
-        lib.fa_forward.restype = ci
-        lib.fa_error_string.argtypes = [ci]
-        lib.fa_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = _bind("flash_attention", _SIGNATURES)
     return _lib
+
+
+def _lse_library():
+    global _lse_lib
+    if _lse_lib is None:
+        _lse_lib = _bind("flash_attention_lse", _LSE_SIGNATURES)
+    return _lse_lib
+
+
+def _backward_library():
+    global _bwd_lib
+    if _bwd_lib is None:
+        _bwd_lib = _bind("flash_attention_bwd", _BWD_SIGNATURES)
+    return _bwd_lib
 
 
 def _masks(Sq: int, Sk: int, causal: bool, window: int, device,
@@ -118,6 +176,21 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
         return torch.cat([_plain(q[b:b + n], k[b:b + n], v[b:b + n], causal,
                                  window, scale) for b in range(0, B, n)])
     return _plain(q, k, v, causal, window, scale)
+
+
+def flash_lse_plain(q, k, *, causal: bool = True, window: int = 0,
+                    scale=None):
+    """(B, H, Sq) fp32: each query row's natural log-sum-exp of its masked
+    fp32 scores, as ``flash_attention_plain`` forms them (a row that no key
+    is visible to gives NEG: log Sk is absorbed).  What the forward's
+    ``lse`` output is held against."""
+    B, H, Sq, D = q.shape
+    Kh, Sk = k.shape[1], k.shape[2]
+    s = torch.einsum("bkgqd,bksd->bkgqs", q.reshape(B, Kh, H // Kh, Sq,
+                                                     D).float(),
+                     k.float()).mul_(D ** -0.5 if scale is None else scale)
+    s.masked_fill_(~_masks(Sq, Sk, causal, window, q.device), NEG)
+    return torch.logsumexp(s, dim=-1).reshape(B, H, Sq)
 
 
 def _plain(q, k, v, causal, window, scale, q_offset=0):
@@ -166,14 +239,14 @@ def flash_attention_backward(q, k, v, do, *, causal: bool = True,
 
 @functools.cache
 def supported_head_dims() -> tuple:
-    """The (D, Dv) pairs the CUDA kernel takes, in both dtypes: the list
-    ``FA_HEAD_DIMS`` that ``csrc/flash_attention.cu`` instantiates, read
-    from the source, so that there is one list.  The plain version (CPU)
-    takes any."""
-    src = (_build.CSRC / "flash_attention.cu").read_text()
+    """The (D, Dv) pairs the CUDA kernels take, forward and backward, in
+    both dtypes: the list ``FA_HEAD_DIMS`` that ``csrc/flash_head_dims.cuh``
+    holds for both sources, read from there, so that there is one list.
+    The plain version (CPU) takes any."""
+    src = (_build.CSRC / "flash_head_dims.cuh").read_text()
     body = re.search(r"#define FA_HEAD_DIMS\(X\)((?:.*\\\n)*.*)", src)
     if body is None:
-        raise RuntimeError("flash_attention.cu defines no FA_HEAD_DIMS")
+        raise RuntimeError("flash_head_dims.cuh defines no FA_HEAD_DIMS")
     return tuple((int(d), int(dv))
                  for d, dv in re.findall(r"X\((\d+), (\d+)\)", body[1]))
 
@@ -220,7 +293,11 @@ def padded_head_dims(D: int, Dv: int):
     return P, P
 
 
-def _flash_cuda(q, k, v, causal: bool, window: int, scale=None):
+def _flash_cuda(q, k, v, causal: bool, window: int, scale=None,
+                lse: bool = False):
+    """The forward kernel; with ``lse`` the instance that also writes each
+    row's log-sum-exp (the training forward's library), returned beside
+    the output."""
     global launches
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"flash_attention: no kernel for {q.dtype}")
@@ -237,49 +314,127 @@ def _flash_cuda(q, k, v, causal: bool, window: int, scale=None):
         raise ValueError(f"flash_attention: B={B} H={H} Sq={Sq} too large "
                          "for the grid")
     in_strides = [*_tma_strides(q), *_tma_strides(k), *_tma_strides(v)]
-    lib = _library()
+    lib = _lse_library() if lse else _library()
     o = torch.empty((B, Sq, H, Dv), dtype=q.dtype,
                     device=q.device).transpose(1, 2)
     strides = (ctypes.c_longlong * 12)(*in_strides, *o.stride()[:3])
+    rest = (B, H, Kh, Sq, Sk, D, Dv, strides,
+            D ** -0.5 if scale is None else scale, int(causal), int(window))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.fa_forward(_DTYPE_CODE[q.dtype], q.data_ptr(),
-                             k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H,
-                             Kh, Sq, Sk, D, Dv, strides,
-                             D ** -0.5 if scale is None else scale,
-                             int(causal), int(window), stream)
+        if lse:
+            m = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+            err = lib.fa_forward_lse(_DTYPE_CODE[q.dtype], *ptrs,
+                                     m.data_ptr(), *rest, stream)
+        else:
+            err = lib.fa_forward(_DTYPE_CODE[q.dtype], *ptrs, *rest, stream)
     if err != 0:
         raise RuntimeError("flash_attention: kernel launch failed: "
                            + lib.fa_error_string(err).decode())
     launches += 1
-    return o
+    return (o, m) if lse else o
 
 
-def _cuda_forward(q, k, v, causal, window):
+def _cuda_forward(q, k, v, causal, window, lse: bool = False):
     """The kernel on CUDA tensors, head dims it has no instance for padded
-    as above."""
+    as above; with ``lse``, (output, lse)."""
     D, Dv = q.shape[3], v.shape[3]
     P, Pv = padded_head_dims(D, Dv)
     if (P, Pv) == (D, Dv) or P > 256:
-        return _flash_cuda(q, k, v, causal, window)
-    o = _flash_cuda(F.pad(q, (0, P - D)), F.pad(k, (0, P - D)),
-                    F.pad(v, (0, Pv - Dv)), causal, window, scale=D ** -0.5)
-    return o[..., :Dv]
+        return _flash_cuda(q, k, v, causal, window, lse=lse)
+    out = _flash_cuda(F.pad(q, (0, P - D)), F.pad(k, (0, P - D)),
+                      F.pad(v, (0, Pv - Dv)), causal, window,
+                      scale=D ** -0.5, lse=lse)
+    return (out[0][..., :Dv], out[1]) if lse else out[..., :Dv]
 
 
-# The kernel as the operator ``repro_torch::flash_attention``: its real
-# implementation launches the kernel on CUDA tensors (and raises on any
-# other); its fake one gives the output's shape, so a trace on meta
-# tensors (the mesh dry run) records the operator and never the plain
-# version.  ``repro_torch::flash_attention_backward`` stands for the
-# backward in such a trace: the gradient is autograd's through the plain
-# version, which an operator's body cannot record (it runs below the
-# autograd dispatch key), so on a device ``FlashAttention`` calls
-# ``flash_attention_backward`` itself and the operator's body raises.
-# The operators' namespace is ``repro_torch`` for the package's module; any
-# other copy of the module (``kernel_compare.py`` loads another checkout's
-# beside it) registers its own operators under its module name, so every
-# copy launches through its own.
+def _aligned(t):
+    """``t`` itself where its rows are 16-byte aligned with a contiguous
+    feature dimension, else a contiguous copy."""
+    ok = t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(
+        st * t.element_size() % 16 == 0 for n, st in zip(t.shape[:3],
+                                                         t.stride()[:3])
+        if n > 1)
+    return t if ok else t.contiguous()
+
+
+def _flash_backward_cuda(q, k, v, o, lse, do, causal, window, scale=None):
+    """(dq, dk, dv), contiguous, from the backward kernels."""
+    global backward_launches
+    if q.dtype not in _DTYPE_CODE or len({q.dtype, k.dtype, v.dtype, o.dtype,
+                                          do.dtype}) != 1:
+        raise ValueError(f"flash_attention_backward: no kernel for "
+                         f"{q.dtype}, {do.dtype}")
+    B, H, Sq, D = q.shape
+    Kh, Sk, Dv = k.shape[1], k.shape[2], v.shape[3]
+    if (D, Dv) not in supported_head_dims():
+        raise ValueError(f"flash_attention_backward: no kernel for head dims "
+                         f"D={D}, Dv={Dv}")
+    if tuple(lse.shape) != (B, H, Sq) or lse.dtype != torch.float32 or \
+            not lse.is_contiguous():
+        raise ValueError("flash_attention_backward: lse must be a contiguous "
+                         f"fp32 {(B, H, Sq)}")
+    if o.stride(-1) != 1:
+        o = o.contiguous()
+    do = _aligned(do)
+    for t in (q, k, v):
+        _tma_strides(t)
+        if t.stride(-1) != 1:
+            raise ValueError("flash_attention_backward: the feature "
+                             "dimension must be contiguous")
+    dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                  for t in (q, k, v))
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    tensors = (q, k, v, o, do, dq, dk, dv)
+    strides = (ctypes.c_longlong * 24)(*(st for t in tensors
+                                         for st in t.stride()[:3]))
+    # the plain softmax's weight of a row that no key is visible to, as it
+    # casts its probabilities to v's dtype
+    pinv = float(torch.tensor(1.0 / Sk, dtype=torch.float32).to(v.dtype))
+    lib = _backward_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.fa_backward(_DTYPE_CODE[q.dtype],
+                              *(t.data_ptr() for t in tensors[:5]),
+                              lse.data_ptr(), delta.data_ptr(),
+                              *(t.data_ptr() for t in tensors[5:]), B, H, Kh,
+                              Sq, Sk, D, Dv, strides,
+                              D ** -0.5 if scale is None else scale,
+                              int(causal), int(window), pinv, stream)
+    if err != 0:
+        raise RuntimeError("flash_attention_backward: kernel launch failed: "
+                           + lib.fa_backward_error_string(err).decode())
+    backward_launches += 1
+    return dq, dk, dv
+
+
+def _cuda_backward(q, k, v, o, lse, do, causal, window):
+    """The backward kernels on CUDA tensors, head dims they have no instance
+    for padded as the forward pads them (zero columns add nothing to any
+    score, output or gradient) and the gradients cut back."""
+    D, Dv = q.shape[3], v.shape[3]
+    P, Pv = padded_head_dims(D, Dv)
+    if (P, Pv) == (D, Dv) or P > 256:
+        return _flash_backward_cuda(q, k, v, o, lse, do, causal, window)
+    g = _flash_backward_cuda(F.pad(q, (0, P - D)), F.pad(k, (0, P - D)),
+                             F.pad(v, (0, Pv - Dv)), F.pad(o, (0, Pv - Dv)),
+                             lse, F.pad(do, (0, Pv - Dv)), causal, window,
+                             scale=D ** -0.5)
+    return tuple(t[..., :n].contiguous() for t, n in zip(g, (D, D, Dv)))
+
+
+# The kernels as operators: ``repro_torch::flash_attention`` (serving's
+# forward), ``repro_torch::flash_attention_lse`` (training's forward, which
+# also gives the log-sum-exp) and ``repro_torch::flash_attention_backward``
+# (the backward kernels).  Their real implementations launch the kernels
+# on CUDA tensors (and raise on any other); their fake ones give the
+# outputs' shapes, so a trace on meta tensors (the mesh dry run) records
+# the operators and never the plain version.  The operators' namespace is
+# ``repro_torch`` for the package's module; any other copy of the module
+# (``kernel_compare.py`` loads another checkout's beside it) registers its
+# own operators under its module name, so every copy launches through its
+# own.
 _NS = "repro_torch" if __name__ == "repro_torch.kernels.flash_attention" \
     else re.sub(r"\W", "_", __name__)
 
@@ -298,19 +453,39 @@ def _flash_fake(q, k, v, causal, window):
     return q.new_empty((B, Sq, H, v.shape[3])).transpose(1, 2)
 
 
+@torch.library.custom_op(f"{_NS}::flash_attention_lse", mutates_args=())
+def flash_attention_lse_op(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, causal: bool, window: int
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    return _cuda_forward(q, k, v, causal, window, lse=True)
+
+
+@flash_attention_lse_op.register_fake
+def _flash_lse_fake(q, k, v, causal, window):
+    B, H, Sq, _ = q.shape
+    return (_flash_fake(q, k, v, causal, window),
+            q.new_empty((B, H, Sq), dtype=torch.float32))
+
+
 @torch.library.custom_op(f"{_NS}::flash_attention_backward",
                          mutates_args=())
 def flash_attention_backward_op(q: torch.Tensor, k: torch.Tensor,
-                                v: torch.Tensor, do: torch.Tensor,
+                                v: torch.Tensor, o: torch.Tensor,
+                                lse: torch.Tensor, do: torch.Tensor,
                                 causal: bool, window: int
                                 ) -> tuple[torch.Tensor, torch.Tensor,
                                            torch.Tensor]:
-    raise RuntimeError("flash_attention_backward: the operator is traced, "
-                       "not run; call flash_attention_backward")
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_backward: no kernel for device "
+                         f"{q.device}")
+    _check(q, k, v)
+    return _cuda_backward(q, k, v, o, lse, do, causal, window)
 
 
 @flash_attention_backward_op.register_fake
-def _flash_backward_fake(q, k, v, do, causal, window):
+def _flash_backward_fake(q, k, v, o, lse, do, causal, window):
     return tuple(torch.empty_like(t, memory_format=torch.contiguous_format)
                  for t in (q, k, v))
 
@@ -347,8 +522,13 @@ def _register_flops():
     def _fwd(q, k, v, causal, window, *args, out_shape=None, **kw):
         return int(flash_flops(q, k, v, causal, window))
 
+    @register_flop_formula(ops.flash_attention_lse)
+    def _fwd_lse(q, k, v, causal, window, *args, out_shape=None, **kw):
+        return int(flash_flops(q, k, v, causal, window))
+
     @register_flop_formula(ops.flash_attention_backward)
-    def _bwd(q, k, v, do, causal, window, *args, out_shape=None, **kw):
+    def _bwd(q, k, v, o, lse, do, causal, window, *args, out_shape=None,
+             **kw):
         # recompute the scores and P V, then dV, dP, dQ and dK
         return int(2.5 * flash_flops(q, k, v, causal, window))
 
@@ -367,33 +547,58 @@ def _forward(q, k, v, causal, window):
     raise ValueError(f"flash_attention: no kernel for device {q.device}")
 
 
+def _forward_lse(q, k, v, causal, window):
+    """(output, lse) for a graph that will be differentiated: on a CUDA
+    tensor the kernel's operator that writes lse; on a meta one inside
+    ``trace.meta_operators()`` serving's operator (the dry run counts one
+    forward operator a call) and an lse of the right shape; on a CPU tensor
+    the plain version, whose backward needs no lse (None)."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal,
+                                     window=window), None
+    if q.device.type == "cuda":
+        return flash_attention_lse_op(q, k, v, causal, window)
+    o = _forward(q, k, v, causal, window)
+    B, H, Sq, _ = q.shape
+    return o, q.new_empty((B, H, Sq), dtype=torch.float32)
+
+
 class FlashAttention(torch.autograd.Function):
-    """Flash attention that autograd differentiates.  Forward: ``_forward``,
-    the hand-written kernel on the card (launched again where a
-    checkpointed block is recomputed).  Backward: the gradient of
+    """Flash attention that autograd differentiates.  ``record``: a graph
+    will be differentiated (grad on and an input requires it); else the
+    forward is serving's and saves nothing.  Forward: the hand-written
+    kernel on the card (launched again where a checkpointed block is
+    recomputed), when recording its instance that also writes each row's
+    log-sum-exp.  Backward: on the card the backward kernels
+    (``flash_attention_backward_op``); on the CPU the gradient of
     ``flash_attention_plain`` in plain PyTorch
-    (``flash_attention_backward``).  The plain backward is the gradient
-    the port defines, as the reference defines its own by autodiff of its
-    jnp attention (it has no backward kernel); it is not a fallback, and a
-    hand-written backward kernel is later work.  Its time on the card is
-    in PERF.md."""
+    (``flash_attention_backward``), the gradient the port defines, as the
+    reference defines its own by autodiff of its jnp attention, and what
+    the kernels are held against on the card."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
-        ctx.save_for_backward(q, k, v)
+    def forward(ctx, q, k, v, causal, window, record):
         ctx.causal, ctx.window = causal, window
-        return _forward(q, k, v, causal, window)
+        if not record:
+            return _forward(q, k, v, causal, window)
+        o, lse = _forward_lse(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v = ctx.saved_tensors
-        if q.device.type == "meta":
-            g = flash_attention_backward_op(q, k, v, do, ctx.causal,
-                                            ctx.window)
-        else:
+        q, k, v, o, lse = ctx.saved_tensors
+        if q.device.type == "cpu":
             g = flash_attention_backward(q, k, v, do, causal=ctx.causal,
                                          window=ctx.window)
-        return (*g, None, None)
+        elif trace.operator_device(q.device):
+            with torch.profiler.record_function("flash_attention.backward"):
+                g = flash_attention_backward_op(q, k, v, o, lse, do,
+                                                ctx.causal, ctx.window)
+        else:
+            raise ValueError(f"flash_attention: no kernel for device "
+                             f"{q.device}")
+        return (*g, None, None, None)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -404,4 +609,6 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensor, through ``FlashAttention`` (which records nothing where grad
     is off or no input requires it, as in serving)."""
     _check(q, k, v)
-    return FlashAttention.apply(q, k, v, causal, window)
+    record = torch.is_grad_enabled() and any(t.requires_grad
+                                             for t in (q, k, v))
+    return FlashAttention.apply(q, k, v, causal, window, record)

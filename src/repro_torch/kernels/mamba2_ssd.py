@@ -31,9 +31,14 @@ intermediates: the chunk states, each chunk's total log-decay and the
 state entering each chunk.
 
 Training differentiates through ``MambaSSD``: the kernel forward, and as
-backward the gradient of the plain version for x, dt, A, B and C in
-plain PyTorch (``mamba2_ssd_backward``), a sequence at a time; the final
-state takes no gradient.
+backward on the card the hand-written backward kernels in
+``csrc/mamba2_ssd_bwd.cu`` (the forward's stages reversed: chunk states,
+a forward and a reverse state pass, the chunk gradients, the sums over
+heads; fp32 FMAs, no float atomics), two paths chosen by the pure
+function ``plan_backward``; on the CPU the gradient of the plain version
+for x, dt, A, B and C in plain PyTorch (``mamba2_ssd_backward``, a
+sequence at a time), which the kernels are held against on the card.
+The final state takes no gradient.
 
 The scan is the operator ``repro_torch::mamba2_ssd``
 (``torch.library.custom_op``, with a fake implementation and a flop
@@ -53,10 +58,14 @@ MAX_DIM = 128           # P and N: the widest instantiated thread layout
 STAGED_DIMS = (16, 32, 64)  # P and N of the staged path (SSD_STAGED_DIMS)
 STAGED_MAX_CHUNK = 256      # its largest chunk (kMaxChunk)
 
-# launches of the CUDA kernel: one per wrapper call, on either path
+# launches of the CUDA kernel: one per wrapper call, on either path; of
+# the backward kernels: one per backward call (its four kernels)
 launches = 0
-# the path ("staged" or "general") of the last call on the card
+backward_launches = 0
+# the path ("staged" or "general") of the last call on the card, and of
+# the last backward call ("fast" or "general")
 last_plan = None
+last_backward_plan = None
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ci, _vp = ctypes.c_int, ctypes.c_void_p
@@ -69,7 +78,15 @@ _SIGNATURES = {
                     _ci, _ci, _ci, _ci, _ci, _ci, _strides, _vp], _ci),
     "ssd_error_string": ([_ci], ctypes.c_char_p),
 }
+# those of csrc/mamba2_ssd_bwd.cu
+_BWD_SIGNATURES = {
+    "ssd_backward": ([_ci, _ci, *[_vp] * 18, _ci, _ci, _ci, _ci, _ci, _ci,
+                      _strides, _vp], _ci),
+    "ssd_backward_smem": ([_ci, _ci, _ci, _ci], ctypes.c_longlong),
+    "ssd_backward_error_string": ([_ci], ctypes.c_char_p),
+}
 _lib = None
+_bwd_lib = None
 
 
 def build(verbose: bool = False):
@@ -79,15 +96,71 @@ def build(verbose: bool = False):
     return _build.build("mamba2_ssd", verbose)
 
 
+def build_backward(verbose: bool = False):
+    """``build`` of the backward kernels, ``csrc/mamba2_ssd_bwd.cu``."""
+    return _build.build("mamba2_ssd_bwd", verbose)
+
+
+def _bind(name, signatures):
+    lib = _build.library(name)
+    for fn, (args, res) in signatures.items():
+        getattr(lib, fn).argtypes, getattr(lib, fn).restype = args, res
+    return lib
+
+
 def _library():
     global _lib
     if _lib is None:
-        lib = _build.library("mamba2_ssd")
-        for name, (args, res) in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes, fn.restype = args, res
-        _lib = lib
+        _lib = _bind("mamba2_ssd", _SIGNATURES)
     return _lib
+
+
+def _backward_library():
+    global _bwd_lib
+    if _bwd_lib is None:
+        _bwd_lib = _bind("mamba2_ssd_bwd", _BWD_SIGNATURES)
+    return _bwd_lib
+
+
+# the backward's paths: "fast" (P and N up to FAST_DIM, 64-row tiles, the
+# chunk's state and per-row arrays in shared memory), "general" (up to
+# MAX_DIM, 32-row tiles, the per-row arrays in a global scratch of
+# ROW_ARRAYS x chunk floats a (sequence, chunk, head))
+FAST_DIM = 64
+MAX_SMEM = 232448          # shared memory a block may take (227 KB)
+ROW_ARRAYS = 5             # kRowArrays
+
+
+def backward_smem(path: str, P: int, N: int, chunk: int) -> int:
+    """Bytes of shared memory the backward's chunk kernel takes on ``path``
+    (``chunk_smem_floats`` in ``csrc/mamba2_ssd_bwd.cu``): the x dt and dy
+    tiles, the B and C tiles, two score tiles, the row sums' partials, on
+    the fast path the state entering the chunk, its gradient and the
+    per-row arrays, the cumulative log-decay."""
+    rt = 64 if path == "fast" else 32
+    p4, n4 = -(-P // 4) * 4, -(-N // 4) * 4
+    floats = 2 * rt * (p4 + 4) + 2 * rt * (n4 + 4) + 2 * rt * (rt + 4) + \
+        16 * rt + (2 * P * (n4 + 4) + ROW_ARRAYS * chunk
+                   if path == "fast" else 0) + chunk + 16
+    return 4 * floats
+
+
+def plan_backward(P: int, N: int, chunk: int) -> str:
+    """The path a backward call takes: ``"fast"`` for P and N up to
+    ``FAST_DIM`` where its shared memory fits, else ``"general"`` (P and N
+    up to ``MAX_DIM``); raises where neither fits (a chunk of tens of
+    thousands of rows, beyond what the forward takes)."""
+    if max(P, N) > MAX_DIM:
+        raise ValueError(f"mamba2_ssd_backward: P={P}, N={N} above the "
+                         f"kernel's {MAX_DIM}")
+    if max(P, N) <= FAST_DIM and backward_smem("fast", P, N, chunk) <= \
+            MAX_SMEM:
+        return "fast"
+    if backward_smem("general", P, N, chunk) <= MAX_SMEM:
+        return "general"
+    raise ValueError(f"mamba2_ssd_backward: a chunk of {chunk} rows needs "
+                     f"{backward_smem('general', P, N, chunk)} bytes of "
+                     f"shared memory, above {MAX_SMEM}")
 
 
 def plan(P: int, N: int, chunk: int, aligned: bool) -> str:
@@ -268,6 +341,49 @@ def _ssd_fake(x, dt, A, B, C, chunk):
             x.new_empty((Bt, H, P, B.shape[-1]), dtype=torch.float32))
 
 
+def _ssd_backward_cuda(x, dt, A, B, C, dy, chunk: int):
+    """(dx, ddt, dA, dB, dC) from the backward kernels, each in its input's
+    dtype (dA summed in fp32)."""
+    global backward_launches, last_backward_plan
+    Bt, L, H, P = x.shape
+    N = B.shape[-1]
+    path = plan_backward(P, N, chunk)
+    dev, nc, n4 = x.device, L // chunk, -(-N // 4) * 4
+    dy = dy.to(torch.float32).contiguous()
+    dx = torch.empty((Bt, L, H, P), dtype=x.dtype, device=dev)
+    ddt = torch.empty((Bt, L, H), dtype=torch.float32, device=dev)
+    dA = torch.empty((H,), dtype=torch.float32, device=dev)
+    dB = torch.empty((Bt, L, N), dtype=B.dtype, device=dev)
+    dC = torch.empty((Bt, L, N), dtype=C.dtype, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    scratch = [torch.empty((Bt, nc, H, P, n4), **f32),     # S, then In
+               torch.empty((Bt, nc, H, P, n4), **f32),     # Q, then dOut
+               torch.empty((Bt, nc, H), **f32),            # chunk totals
+               torch.empty((Bt, L, H, N), **f32),          # dB a head
+               torch.empty((Bt, L, H, N), **f32),          # dC a head
+               torch.empty((Bt, nc, H), **f32),            # dA a chunk
+               torch.empty((Bt, nc, H, ROW_ARRAYS, chunk)  # per-row arrays
+                           if path == "general" else (1,), **f32)]
+    strides = (ctypes.c_longlong * 8)(
+        x.stride(0), x.stride(1), dt.stride(0), dt.stride(1), B.stride(0),
+        B.stride(1), C.stride(0), C.stride(1))
+    lib = _backward_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ssd_backward(
+            _DTYPE_CODE[x.dtype], 0 if path == "fast" else 1,
+            *(t.data_ptr() for t in (x, dt, A, B, C, dy, dx, ddt, dA, dB, dC,
+                                     *scratch)),
+            Bt, L, H, P, N, chunk, strides, stream)
+    if err != 0:
+        raise RuntimeError(f"mamba2_ssd_backward: {path} kernel launch "
+                           "failed: "
+                           + lib.ssd_backward_error_string(err).decode())
+    backward_launches += 1
+    last_backward_plan = path
+    return dx, ddt, dA.to(A.dtype), dB, dC
+
+
 @torch.library.custom_op(f"{_NS}::mamba2_ssd_backward", mutates_args=())
 def mamba2_ssd_backward_op(x: torch.Tensor, dt: torch.Tensor,
                            A: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
@@ -275,8 +391,12 @@ def mamba2_ssd_backward_op(x: torch.Tensor, dt: torch.Tensor,
                            ) -> tuple[torch.Tensor, torch.Tensor,
                                       torch.Tensor, torch.Tensor,
                                       torch.Tensor]:
-    raise RuntimeError("mamba2_ssd_backward: the operator is traced, not "
-                       "run; call mamba2_ssd_backward")
+    if x.device.type != "cuda":
+        raise ValueError(f"mamba2_ssd_backward: no kernel for device "
+                         f"{x.device}")
+    _check(x, dt, A, B, C, chunk)
+    _check_kernel(x, dt, A, B, C, chunk)
+    return _ssd_backward_cuda(x, dt, A, B, C, dy, chunk)
 
 
 @mamba2_ssd_backward_op.register_fake
@@ -364,13 +484,13 @@ def mamba2_ssd_backward(x, dt, A, B, C, dy, *, chunk: int):
 class MambaSSD(torch.autograd.Function):
     """The SSD scan that autograd differentiates.  Forward: ``_forward``,
     the hand-written kernel on the card (launched again where a
-    checkpointed block is recomputed).  Backward: the gradient of
+    checkpointed block is recomputed).  Backward: on the card the backward
+    kernels (``mamba2_ssd_backward_op``); on the CPU the gradient of
     ``mamba2_ssd_plain`` for x, dt, A, B and C in plain PyTorch
-    (``mamba2_ssd_backward``); the reference differentiates its jnp
-    ``ssd_chunked`` the same way and has no backward kernel.  The plain
-    backward is the gradient the port defines, not a fallback; a
-    hand-written backward kernel is later work.  The final state is not
-    differentiable (training never reads it)."""
+    (``mamba2_ssd_backward``), the gradient the port defines (the
+    reference differentiates its jnp ``ssd_chunked`` the same way and has
+    no backward kernel), which the kernels are held against on the card.
+    The final state is not differentiable (training never reads it)."""
 
     @staticmethod
     def forward(ctx, x, dt, A, B, C, chunk):
@@ -382,11 +502,14 @@ class MambaSSD(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, _dstate):
-        if dy.device.type == "meta":
-            g = mamba2_ssd_backward_op(*ctx.saved_tensors, dy.contiguous(),
-                                       ctx.chunk)
-        else:
+        if dy.device.type == "cpu":
             g = mamba2_ssd_backward(*ctx.saved_tensors, dy, chunk=ctx.chunk)
+        elif trace.operator_device(dy.device):
+            with torch.profiler.record_function("mamba2_ssd.backward"):
+                g = mamba2_ssd_backward_op(*ctx.saved_tensors,
+                                           dy.contiguous(), ctx.chunk)
+        else:
+            raise ValueError(f"mamba2_ssd: no kernel for device {dy.device}")
         return (*g, None)
 
 

@@ -9,3 +9,10 @@ points (which set the same guard themselves).
 import os
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc (the port's CUDA "
+        "kernels); skips without one.  On the card: python -m pytest -m "
+        "cuda tests/test_torch_backward_cuda.py")
