@@ -11,9 +11,11 @@ Phases, each printing its lines; any failure exits non-zero:
    from ``src/repro_torch/kernels/csrc`` (one nvcc each for sm_90a,
    started together) and print each build time; count the tensor-core
    (HGMMA) and TMA-load (UTMALDG) instructions in the flash library's SASS
-   (``cuobjdump``), which must hold both, and the tensor-core instructions
-   (HMMA, HGMMA) in the SSD library's and (HMMA) in the flash backward
-   library's, which must hold some;
+   (``cuobjdump``), which must hold both, the tensor-core instructions
+   (HMMA, HGMMA) in the SSD library's and the SSD backward library's, which
+   must hold some, and HGMMA, UTMALDG (the wgmma path) and HMMA (the
+   general bf16 path) in the flash backward library's, which must hold
+   all three;
 3. gallery-match kernel vs plain: the kernel against its plain PyTorch
    version on the card, for fp32, bf16 and int8 galleries at Q in
    {1, 16, 256}, N in {1000, 262144}, D = 128, k in {1, 5}, plus k > N,
@@ -78,13 +80,17 @@ Phases, each printing its lines; any failure exits non-zero:
    ``FlashAttention`` against ``flash_attention_backward`` (autograd
    through the plain version) at the serving shapes' masks and head dims
    at batch 1-2, the smoke MLA pair (24, 16), padded to (32, 32), and a
-   window with Sq >= Sk + window (rows that see no key), each gradient
-   by its relative Frobenius error (``FLASH_BWD_REL``), two calls
+   window with Sq >= Sk + window (rows that see no key), on the path
+   ``plan_backward`` gives (wgmma for head dims 64, 80 and 128, else
+   general) and, where that is wgmma, on the general path too, each
+   gradient by its relative Frobenius error (``FLASH_BWD_REL``), two calls
    bit-identical, a planted 5 % fault rejected, and the forward's
    log-sum-exp against the plain one; then timed, split by kernel, at
-   the training shapes (``FLASH_TRAIN``) beside the plain backward,
-   ``scaled_dot_product_attention``'s backward and the bound (2.5 times
-   the forward's flops);
+   the training shapes (``FLASH_TRAIN``, which must take the wgmma path;
+   the general path timed beside it) beside the plain backward,
+   ``scaled_dot_product_attention``'s backward and the bound of each
+   path's arithmetic (2.5 times the forward's flops; in fp32 three bf16
+   products each on the wgmma path, fp32 FMAs on the general one);
 6. SSD kernel vs plain: in fp32 and bf16, on the CPU tests' shapes, the
    kernel's edges (one chunk; a chunk of 100; P = 8 with N = 4; the smoke
    config, P = N = 16 and L = 32, as strided views; one sequence of one
@@ -99,10 +105,11 @@ Phases, each printing its lines; any failure exits non-zero:
    dtypes beside the bound on tensor cores and on the FMA units; then the
    backward kernels: dx, ddt, dA, dB and dC through ``MambaSSD`` against
    ``mamba2_ssd_backward`` at zamba2's training microbatch
-   (``SSD_TRAIN``, strided) and on the backward's general path
-   (``SSD_BWD_GENERAL``, and ``SSD_BWD_LONG``, a chunk of 4096), as
-   phase 5's (``SSD_BWD_REL``), then timed,
-   split by kernel, beside the plain backward and the bound;
+   (``SSD_TRAIN``, strided: the tensor path) and on the backward's general
+   path (``SSD_BWD_GENERAL``, and ``SSD_BWD_LONG``, a chunk of 4096), as
+   phase 5's (``SSD_BWD_REL``), then timed, split by kernel, beside the
+   plain backward and the bounds (the tensor path's arithmetic, and the
+   fp32 FMA peak);
 7. the reference check: the biometric stages on the card vs on the CPU;
 8. exact main path: ``run_biometric`` on the card once per match dtype,
    over a 4-shard watchlist of the 10 pipeline subjects plus 1,048,576
@@ -201,9 +208,11 @@ Phases, each printing its lines; any failure exits non-zero:
    run saw and each sharded run's to its unsharded run's; both wall
    times printed (their difference is DTensor's host cost);
 14. the port's examples, each a process of its own on the card (its
-   default): ``quickstart_torch.py``, ``serve_biometric_torch.py`` and
-   ``arch_smoke_all_torch.py`` must exit 0 with their OK lines, and the
-   flash kernel must have launched in the last (``EXAMPLES_ON_CARD``).
+   default): ``quickstart_torch.py``, ``serve_biometric_torch.py``,
+   ``arch_smoke_all_torch.py`` and ``elastic_recovery_torch.py`` (a clean
+   and a recovered training run whose final losses agree within 1e-3)
+   must exit 0 with their OK lines, and the flash kernel must have
+   launched in ``arch_smoke_all_torch.py`` (``EXAMPLES_ON_CARD``).
 Every profiler trace that times kernels or counts their launches is
 bracketed by two marker kernels and counts only the launches between them;
 a timing takes two whole traces in a row that hold the same launches and
@@ -565,8 +574,10 @@ def sass_counts(build, ops):
 def phase_sass(FA, SSD):
     """The flash library's bf16 path must issue tensor-core (HGMMA) and
     TMA loads (UTMALDG), the SSD library's staged path tensor-core
-    instructions (HMMA or HGMMA), the flash backward library's bf16 path
-    tensor-core instructions (HMMA)."""
+    instructions (HMMA or HGMMA); the flash backward library's wgmma path
+    warpgroup products (HGMMA) and TMA loads (UTMALDG), its general bf16
+    path tensor-core instructions (HMMA); the SSD backward library's
+    tensor path tensor-core instructions (HMMA or HGMMA)."""
     flash = sass_counts(FA.build, ("HGMMA", "UTMALDG"))
     if not all(flash.values()):
         raise AssertionError(f"the flash library's bf16 path issues no "
@@ -575,11 +586,16 @@ def phase_sass(FA, SSD):
     if not any(ssd.values()):
         raise AssertionError(f"the SSD library issues no tensor-core "
                              f"instructions: {ssd}")
-    flash_bwd = sass_counts(FA.build_backward, ("HMMA",))
-    if not flash_bwd["HMMA"]:
-        raise AssertionError("the flash backward library's bf16 path issues "
-                             "no tensor-core instructions")
-    return flash, ssd, flash_bwd
+    flash_bwd = sass_counts(FA.build_backward, ("HGMMA", "UTMALDG", "HMMA"))
+    if not all(flash_bwd.values()):
+        raise AssertionError(f"the flash backward library issues no "
+                             f"warpgroup products, no TMA loads or no "
+                             f"mma.sync: {flash_bwd}")
+    ssd_bwd = sass_counts(SSD.build_backward, ("HMMA", "HGMMA"))
+    if not any(ssd_bwd.values()):
+        raise AssertionError(f"the SSD backward library issues no "
+                             f"tensor-core instructions: {ssd_bwd}")
+    return flash, ssd, flash_bwd, ssd_bwd
 
 
 def fault_top_score(s, i):
@@ -1902,8 +1918,7 @@ FLASH_TRAIN = {"gqa": (8, 32, 4, 2048, 2048, 64, 64, True, 0),
                "mha": (2, 32, 32, 2048, 2048, 80, 80, True, 0)}
 SSD_TRAIN = (2, 2048, 80, 64, 64, 256)
 # SSD shapes on the backward's general path: P or N above 64, and a chunk
-# too long for the fast path's shared memory (the per-row arrays in global
-# scratch)
+# beyond the tensor path's longest (the per-row arrays in global scratch)
 SSD_BWD_GENERAL = (1, 256, 2, 128, 96, 128)
 SSD_BWD_LONG = (1, 4096, 4, 64, 64, 4096)
 
@@ -1971,12 +1986,41 @@ def flash_bwd_work(shape, dtype):
     return nbytes, 2.5 * flash_work(shape, dtype)[1]
 
 
+# fp32 products on the tensor cores as split bf16 operands: three bf16
+# products (hi.hi + hi.lo + lo.hi) for each fp32 one
+SPLIT_PRODUCTS = 3
+
+
+def path_bound(dtype, path, nbytes, ops):
+    """(bound ms, what bounds it) of the arithmetic a backward path does:
+    fp32 on the tensor-core paths (flash "wgmma", SSD "tensor") as
+    SPLIT_PRODUCTS bf16 products each at the bf16 peak, fp32 on the other
+    paths at the fp32 FMA peak, bf16 at the bf16 peak (each product once:
+    the SSD tensor path also splits its fp32 factors, so this is below what
+    it issues)."""
+    if path in ("wgmma", "tensor"):
+        return work_bound("bf16", nbytes,
+                          ops * (SPLIT_PRODUCTS if dtype == "fp32" else 1))
+    return work_bound(dtype, nbytes, ops)
+
+
+def flash_general_grads(torch, FA, q, k, v, do, causal, window):
+    """(dq, dk, dv) from the backward kernels' general path on the
+    forward's output and lse (the path every pair of head dims takes)."""
+    o, lse = FA.flash_attention_lse_op(q, k, v, causal, window)
+    return FA._cuda_backward(q, k, v, o, lse, do, causal, window,
+                             path="general")
+
+
 def phase_flash_backward(torch, FA):
     """Phase 5's backward: the kernels against ``flash_attention_backward``
     (autograd through the plain version) on ``flash_bwd_shapes()`` in both
-    dtypes, the forward's lse against the plain logsumexp; then timed at
-    the training shapes beside the plain backward, the library's
-    (``scaled_dot_product_attention``'s backward) and the bound.  Returns
+    dtypes, on the path ``plan_backward`` gives (wgmma for head dims 64, 80
+    and 128, else general) and, where that is wgmma, on the general path
+    too; the forward's lse against the plain logsumexp; then timed at the
+    training shapes (the wgmma path, which they must take, and the general
+    path) beside the plain backward, the library's
+    (``scaled_dot_product_attention``'s backward) and the bounds.  Returns
     ({dtype: (max abs error, launches in the check)}, {(dtype, name):
     timings})."""
     import torch.nn.functional as F
@@ -1984,6 +2028,7 @@ def phase_flash_backward(torch, FA):
     errs, timings = {}, {}
     for dtype in LM_DTYPES:
         err, caught, abs_err, lse_err, n = 0.0, math.inf, 0.0, 0.0, 0
+        runs = {"wgmma": 0, "general": 0}
         launched = FA.backward_launches
         for shape, model_layout in flash_bwd_shapes():
             causal, window = shape[7], shape[8]
@@ -1995,30 +2040,45 @@ def phase_flash_backward(torch, FA):
             again = flash_kernel_grads(torch, FA, q, k, v, do, causal,
                                        window)
             torch.cuda.synchronize()
+            plan = FA.plan_backward(*FA.padded_head_dims(*shape[5:7]),
+                                    q.dtype)
+            if FA.last_backward_plan != plan:
+                raise AssertionError(f"flash backward {dtype} {shape}: the "
+                                     f"{FA.last_backward_plan} path ran, "
+                                     f"not the planned {plan}")
             want = FA.flash_attention_backward(q, k, v, do, causal=causal,
                                                window=window)
-            e, c, a = check_grads(torch, f"flash backward {dtype} {shape}",
-                                  got, again, want, ("dq", "dk", "dv"),
-                                  FLASH_BWD_REL[dtype])
+            checks = [(plan, got, again)]
+            if plan != "general":
+                checks.append(("general", *(flash_general_grads(
+                    torch, FA, q, k, v, do, causal, window)
+                    for _ in range(2))))
+            for path, g1, g2 in checks:
+                e, c, a = check_grads(
+                    torch, f"flash backward {dtype} {shape} ({path})", g1,
+                    g2, want, ("dq", "dk", "dv"), FLASH_BWD_REL[dtype])
+                err, caught, abs_err = max(err, e), min(caught, c), \
+                    max(abs_err, a)
+                runs[path] += 1
             _, lse = FA.flash_attention_lse_op(q, k, v, causal, window)
             plain = FA.flash_lse_plain(q, k, causal=causal, window=window)
             le = float(((lse - plain).abs() / (1 + plain.abs())).max())
             if not le <= LSE_TOL:
                 raise AssertionError(f"flash {dtype} {shape}: lse differs "
                                      f"from the plain logsumexp by {le:.3g}")
-            err, caught, abs_err = max(err, e), min(caught, c), \
-                max(abs_err, a)
             lse_err, n = max(lse_err, le), n + 1
-            del q, k, v, do, got, again, want, lse, plain
+            del q, k, v, do, got, again, want, lse, plain, checks
         errs[dtype] = (abs_err, FA.backward_launches - launched)
         print(f"[flash-bwd] {dtype}: backward kernels == plain backward on "
               f"{n} shapes (the serving shapes' masks and head dims at "
-              f"batch 1-2, MLA 24/16 padded, rows that see no key): largest "
-              f"relative error of dq, dk, dv {err:.3g} (bound "
-              f"{FLASH_BWD_REL[dtype]}; max abs {abs_err:.3g}), a planted "
-              f"{PLANT - 1:.0%} fault reads {caught:.3g} or more; two calls "
-              f"bit-identical; the forward's lse vs the plain logsumexp "
-              f"{lse_err:.3g} (bound {LSE_TOL})")
+              f"batch 1-2, MLA 24/16 padded, rows that see no key), "
+              f"{runs['wgmma']} on the wgmma path and {runs['general']} on "
+              f"the general path: largest relative error of dq, dk, dv "
+              f"{err:.3g} (bound {FLASH_BWD_REL[dtype]}; max abs "
+              f"{abs_err:.3g}), a planted {PLANT - 1:.0%} fault reads "
+              f"{caught:.3g} or more; two calls bit-identical on each path; "
+              f"the forward's lse vs the plain logsumexp {lse_err:.3g} "
+              f"(bound {LSE_TOL})")
         for name, shape in FLASH_TRAIN.items():
             B, H, Kh, Sq, Sk, D, Dv, causal, window = shape
             q, k, v = flash_inputs(torch, shape, dtype, gen, True)
@@ -2029,8 +2089,15 @@ def phase_flash_backward(torch, FA):
                 torch, lambda *a: FA.flash_attention_backward_op(
                     *a, causal, window), [(q, k, v, o, lse, do)], iters=5,
                 what=f"flash backward {dtype} {name}")
+            path = FA.last_backward_plan
+            if path != "wgmma":
+                raise AssertionError(f"flash backward {dtype} {name}: the "
+                                     f"{path} path ran at a training shape")
             split = kernel_split(torch, lambda: FA.flash_attention_backward_op(
                 q, k, v, o, lse, do, causal, window))
+            gms, _ = timed(torch, lambda *a: FA._cuda_backward(
+                *a, causal, window, path="general"), [(q, k, v, o, lse, do)],
+                iters=3, what=f"flash general backward {dtype} {name}")
             pms, _ = timed(torch, lambda *a: FA.flash_attention_backward(
                 *a, causal=causal, window=window), [(q, k, v, do)], iters=2,
                 what=f"flash plain backward {dtype} {name}")
@@ -2044,16 +2111,20 @@ def phase_flash_backward(torch, FA):
             fms, _ = timed(torch, lambda *a: FA.flash_attention_lse_op(
                 *a, causal, window), [(q, k, v)], iters=5,
                 what=f"flash forward {dtype} {name}")
-            bms, by = work_bound(dtype, *flash_bwd_work(shape, dtype))
-            timings[(dtype, name)] = (kms, pms, lms, bms, by, fms, split)
-            print(f"[flash-bwd] {dtype} {name} {shape[:7]} causal: "
-                  f"kernel_ms={kms:.4f} (per call {kcall:.4f}; "
+            work = flash_bwd_work(shape, dtype)
+            bms, by = path_bound(dtype, path, *work)
+            gbms, _ = path_bound(dtype, "general", *work)
+            timings[(dtype, name)] = (kms, pms, lms, bms, by, fms, split,
+                                      gms, gbms, path)
+            print(f"[flash-bwd] {dtype} {name} {shape[:7]} causal: plan "
+                  f"{path} kernel_ms={kms:.4f} (per call {kcall:.4f}; "
                   + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
-                  + f"; the forward {fms:.4f}) plain_ms={pms:.4f} "
-                  f"library_ms={lms:.4f} "
-                  f"bound_ms={bms:.4f} ({by}); the kernels at "
-                  f"{bms / kms:.1%} of the bound, the library at "
-                  f"{bms / lms:.1%}")
+                  + f"; the forward {fms:.4f}) general_ms={gms:.4f} "
+                  f"plain_ms={pms:.4f} library_ms={lms:.4f} "
+                  f"bound_ms={bms:.4f} ({by}; the {path} path's "
+                  f"arithmetic), {bms / kms:.1%} of it; general path's "
+                  f"bound_ms={gbms:.4f}, {gbms / gms:.1%} of it; the "
+                  f"library at {bms / lms:.1%} of the kernels' bound")
             del q, k, v, do, o, lse, lq, lk, lv, lo
     return errs, timings
 
@@ -2079,49 +2150,58 @@ def ssd_bwd_work(shape, dtype):
 
 def phase_ssd_backward(torch, SSD):
     """Phase 6's backward: the kernels against ``mamba2_ssd_backward`` at
-    zamba2's training microbatch (the model's strided slices) and on one
-    shape of the backward's general path, in both dtypes; then timed at
-    the training shape beside the plain backward and the bound.  Returns
-    ({dtype: (max abs error, launches in the check)}, {dtype: timings})."""
+    zamba2's training microbatch (the model's strided slices: the tensor
+    path) and on the general path's two shapes (P or N above 64; a chunk
+    beyond the tensor path's), in both dtypes; then timed at the training
+    shape (the tensor path, which it must take) beside the plain backward
+    and the bounds.  Returns ({dtype: (max abs error, launches in the
+    check)}, {dtype: timings})."""
     gen = torch.Generator(device=DEV).manual_seed(2027)
     errs, timings = {}, {}
     names = ("dx", "ddt", "dA", "dB", "dC")
     for dtype in LM_DTYPES:
         err, caught, abs_err, paths = 0.0, math.inf, 0.0, []
         launched = SSD.backward_launches
-        for shape, model_layout in ((SSD_TRAIN, True),
-                                    (SSD_BWD_GENERAL, False),
-                                    (SSD_BWD_LONG, False)):
+        for shape, model_layout, want_path in (
+                (SSD_TRAIN, True, "tensor"), (SSD_BWD_GENERAL, False,
+                                              "general"),
+                (SSD_BWD_LONG, False, "general")):
             ins, dy = ssd_grad_inputs(torch, shape, dtype, gen, model_layout)
             runs = []
             for _ in range(2):
                 y, _ = SSD.mamba2_ssd_cuda(*ins, chunk=shape[5])
                 runs.append(torch.autograd.grad(y, ins, dy))
             torch.cuda.synchronize()
-            paths.append(SSD.last_backward_plan)
-            if SSD.last_backward_plan != SSD.plan_backward(*shape[3:]):
+            if SSD.last_backward_plan != want_path:
                 raise AssertionError(f"ssd backward {shape}: the "
-                                     f"{SSD.last_backward_plan} path ran")
+                                     f"{SSD.last_backward_plan} path ran, "
+                                     f"not the {want_path} path")
+            paths.append(SSD.last_backward_plan)
             want = SSD.mamba2_ssd_backward(*(t.detach() for t in ins), dy,
                                            chunk=shape[5])
-            e, c, a = check_grads(torch, f"ssd backward {dtype} {shape}",
-                                  *runs, want, names, SSD_BWD_REL[dtype])
+            e, c, a = check_grads(
+                torch, f"ssd backward {dtype} {shape} ({want_path})",
+                *runs, want, names, SSD_BWD_REL[dtype])
             err, caught, abs_err = max(err, e), min(caught, c), \
                 max(abs_err, a)
             del ins, dy, runs, want, y
         errs[dtype] = (abs_err, SSD.backward_launches - launched)
         print(f"[ssd-bwd] {dtype}: backward kernels == plain backward at "
-              f"{SSD_TRAIN} (strided, {paths[0]} path), {SSD_BWD_GENERAL}"
-              f" ({paths[1]} path) and {SSD_BWD_LONG} ({paths[2]} path): "
-              f"largest relative error of dx, ddt, dA, "
+              f"{SSD_TRAIN} (strided, {paths[0]} path), "
+              f"{SSD_BWD_GENERAL} ({paths[1]} path) and {SSD_BWD_LONG} "
+              f"({paths[2]} path): largest relative error of dx, ddt, dA, "
               f"dB, dC {err:.3g} (bound {SSD_BWD_REL[dtype]}; max abs "
               f"{abs_err:.3g}), a planted {PLANT - 1:.0%} fault reads "
-              f"{caught:.3g} or more; two calls bit-identical")
+              f"{caught:.3g} or more; two calls bit-identical on each shape")
         ins, dy = ssd_grad_inputs(torch, SSD_TRAIN, dtype, gen, True)
         args = [(*(t.detach() for t in ins), dy)]
         c = SSD_TRAIN[5]
         kms, kcall = timed(torch, lambda *a: SSD.mamba2_ssd_backward_op(
             *a, c), args, iters=5, what=f"ssd backward {dtype}")
+        path = SSD.last_backward_plan
+        if path != "tensor":
+            raise AssertionError(f"ssd backward {dtype}: the {path} path ran "
+                                 "at the training shape")
         split = kernel_split(torch, lambda: SSD.mamba2_ssd_backward_op(
             *args[0], c))
         pms, _ = timed(torch, lambda *a: SSD.mamba2_ssd_backward(
@@ -2129,16 +2209,15 @@ def phase_ssd_backward(torch, SSD):
         fwd, _ = timed(torch, lambda *a: SSD.mamba2_ssd_cuda(*a[:5], chunk=c),
                        args, iters=5, what=f"ssd forward {dtype}")
         work = ssd_bwd_work(SSD_TRAIN, dtype)
-        bms, by = work_bound("tf32", *work)
+        bms, by = path_bound(dtype, path, *work)
         fms, _ = work_bound("fp32", *work)
-        timings[dtype] = (kms, pms, bms, by, fms, SSD.last_backward_plan,
-                          split, fwd)
-        print(f"[ssd-bwd] {dtype} {SSD_TRAIN}: {SSD.last_backward_plan} "
-              f"path kernel_ms={kms:.4f} (per call {kcall:.4f}; "
+        timings[dtype] = (kms, pms, bms, by, fms, path, split, fwd)
+        print(f"[ssd-bwd] {dtype} {SSD_TRAIN}: plan {path} "
+              f"kernel_ms={kms:.4f} (per call {kcall:.4f}; "
               + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
-              + f"; the forward {fwd:.4f}) plain_ms={pms:.4f} "
-              f"library_ms=n/a bound_ms={bms:.4f} ({by}; the products at "
-              f"the TF32 tensor-core peak), {bms / kms:.1%} of it; "
+              + f"; the forward {fwd:.4f}) "
+              f"plain_ms={pms:.4f} library_ms=n/a bound_ms={bms:.4f} ({by}; "
+              f"the tensor path's arithmetic), {bms / kms:.1%} of it; "
               f"fma_bound_ms={fms:.4f} (the products at the fp32 FMA peak), "
               f"{fms / kms:.1%} of it")
         del ins, dy, args
@@ -3303,8 +3382,12 @@ def kernel_launches(torch, FA, SSD, fn, what, tries=TRACE_TRIES):
                 return res, n
         print(f"[trace] {what}: try {attempt + 1}: the wrappers counted {n}"
               f", the trace holds {inside if isinstance(inside, str) else seen}")
-    raise AssertionError(f"mesh: {what}: no trace in {tries} tries saw "
-                         "the launches the wrappers counted")
+    raise TraceMissed(f"mesh: {what}: no trace in {tries} tries saw the "
+                      "launches the wrappers counted")
+
+
+class TraceMissed(AssertionError):
+    """No marked trace of a run saw the launches its wrappers counted."""
 
 
 def wall_ms(torch, fn):
@@ -3501,26 +3584,36 @@ def mesh_train(torch, FA, SSD, shd, mdl, mesh):
              for k in ("tokens", "labels")}
     out = {}
     for name in ("unsharded", "sharded"):
-        lm = trainable(mdl.init(cfg, torch.Generator(device=DEV).manual_seed(
-            0), torch.float32, DEV))
-        opt = adamw(constant(TRAIN_LR), weight_decay=0.01)
-        step = make_train_step(cfg, opt, n_micro=TRAIN_MICRO)
-        if name == "sharded":
-            shd.distribute_params(lm, mdl.param_specs(cfg), mesh, rules)
-            b = {k: shd.to_dtensor(v, ("batch", "seq"), mesh,
-                                   shd.RULE_SETS[rules])
-                 for k, v in batch.items()}
-            ctx = shd.use_rules(rules, mesh)
-        else:
-            b, ctx = batch, contextlib.nullcontext()
-        with ctx:
-            state = opt.init(lm)
-            (_, _, met), n = kernel_launches(
-                torch, FA, SSD, lambda: step(lm, state, b, 0),
-                f"{arch} {name} train step", tries=1)
-            n = {**n, "flash_backward": FA.backward_launches,
-                 "ssd_backward": SSD.backward_launches}
-            _, ms = wall_ms(torch, lambda: step(lm, state, b, 1))
+        # a step changes the weights, so a counted step whose trace missed
+        # its launches is taken again from the same seeded weights
+        for attempt in range(TRACE_TRIES):
+            lm = trainable(mdl.init(cfg, torch.Generator(
+                device=DEV).manual_seed(0), torch.float32, DEV))
+            opt = adamw(constant(TRAIN_LR), weight_decay=0.01)
+            step = make_train_step(cfg, opt, n_micro=TRAIN_MICRO)
+            if name == "sharded":
+                shd.distribute_params(lm, mdl.param_specs(cfg), mesh, rules)
+                b = {k: shd.to_dtensor(v, ("batch", "seq"), mesh,
+                                       shd.RULE_SETS[rules])
+                     for k, v in batch.items()}
+                ctx = shd.use_rules(rules, mesh)
+            else:
+                b, ctx = batch, contextlib.nullcontext()
+            try:
+                with ctx:
+                    state = opt.init(lm)
+                    (_, _, met), n = kernel_launches(
+                        torch, FA, SSD, lambda: step(lm, state, b, 0),
+                        f"{arch} {name} train step", tries=1)
+                    n = {**n, "flash_backward": FA.backward_launches,
+                         "ssd_backward": SSD.backward_launches}
+                    _, ms = wall_ms(torch, lambda: step(lm, state, b, 1))
+                break
+            except TraceMissed:
+                if attempt == TRACE_TRIES - 1:
+                    raise
+                del lm, state
+                torch.cuda.empty_cache()
         out[name] = (met, {k: shd.full_tensor(p.detach()) for k, p in
                            named_leaves(lm).items()}, n, ms)
         del lm, state
@@ -3629,23 +3722,32 @@ def phase_keystream(torch):
 # with the line each must end on
 EXAMPLES_ON_CARD = (("quickstart_torch.py", "quickstart OK"),
                     ("serve_biometric_torch.py", "serve_biometric OK"),
-                    ("arch_smoke_all_torch.py", "arch_smoke_all OK"))
+                    ("arch_smoke_all_torch.py", "arch_smoke_all OK"),
+                    ("elastic_recovery_torch.py", "elastic_recovery_torch OK"))
 
 
 def phase_examples(torch):
     """Run each of EXAMPLES_ON_CARD as a subprocess on the card (its
-    default): each must exit 0 with its OK line, and the flash kernel must
-    have launched in ``arch_smoke_all_torch.py`` (its last line but one).
-    Returns {script: seconds}."""
+    default), all at once (they keep virtual time, so running side by side
+    changes none of their checks): each must exit 0 with its OK line, and
+    the flash kernel must have launched in ``arch_smoke_all_torch.py`` (its
+    last line but one).  Returns {script: seconds}."""
+    from concurrent.futures import ThreadPoolExecutor
     torch.cuda.empty_cache()          # the cached blocks go back to the card
     env = {**os.environ, "PYTHONPATH": str(SRC)}
-    out = {}
-    for script, ok in EXAMPLES_ON_CARD:
+
+    def run(script):
         t0 = time.perf_counter()
         res = subprocess.run([sys.executable, str(ROOT / "examples" / script)],
                              cwd=ROOT, env=env, capture_output=True,
                              text=True, timeout=600)
-        out[script] = time.perf_counter() - t0
+        return res, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(EXAMPLES_ON_CARD)) as pool:
+        runs = list(pool.map(run, [s for s, _ in EXAMPLES_ON_CARD]))
+    out = {}
+    for (script, ok), (res, seconds) in zip(EXAMPLES_ON_CARD, runs):
+        out[script] = seconds
         lines = [ln for ln in res.stdout.splitlines() if ok in ln]
         if res.returncode != 0 or not lines:
             raise AssertionError(f"{script}: exit {res.returncode}\n"
@@ -3683,7 +3785,7 @@ def main() -> int:
     print(f"[card] {card}")
     phase_build([gm.build, A.build, FA.build, FA.build_lse, FA.build_backward,
                  SSD.build, SSD.build_backward])
-    sass, ssd_sass, bwd_sass = phase_sass(FA, SSD)
+    sass, ssd_sass, bwd_sass, ssd_bwd_sass = phase_sass(FA, SSD)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     errs, timings, rounds = phase_kernel(torch, gm)
@@ -3809,7 +3911,8 @@ def main() -> int:
             "shape": f"Bt=8 L=2048 H=80 P=64 N=64 chunk=256 {dtype}"})
     for dtype in LM_DTYPES:
         name = f"flash_attention_backward[{dtype}]"
-        kms, pms, lms, bms, by, fms, split = fb_timings[(dtype, "gqa")]
+        kms, pms, lms, bms, by, fms, split, gms, gbms, path = \
+            fb_timings[(dtype, "gqa")]
         mha = fb_timings[(dtype, "mha")]
         kernels.append({
             "name": name, "route": "cuda",
@@ -3825,13 +3928,16 @@ def main() -> int:
             "max_abs_err": fb_errs[dtype][0],
             "ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
             "library_ms": lms, "forward_ms": fms, "kernels_ms": split,
+            "path": path, "general_ms": gms, "general_bound_ms": gbms,
             "sass": bwd_sass,
             "shape": "B=8 H=32 Kh=4 S=2048 D=64 causal (tinyllama's "
                      "training microbatch)",
             "mha": {"shape": "B=2 H=32 Kh=32 S=2048 D=80 causal (zamba2's)",
                     "ms": mha[0], "plain_ms": mha[1], "library_ms": mha[2],
                     "bound_ms": mha[3], "bound_by": mha[4],
-                    "forward_ms": mha[5], "kernels_ms": mha[6]}})
+                    "forward_ms": mha[5], "kernels_ms": mha[6],
+                    "general_ms": mha[7], "general_bound_ms": mha[8],
+                    "path": mha[9]}})
     for dtype in LM_DTYPES:
         name = f"mamba2_ssd_backward[{dtype}]"
         kms, pms, bms, by, fms, path, split, fwd = sb_timings[dtype]
@@ -3850,6 +3956,7 @@ def main() -> int:
             "ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
             "fma_bound_ms": fms, "library_ms": None, "path": path,
             "stages_ms": split, "forward_ms": fwd,
+            "sass": ssd_bwd_sass,
             "shape": "Bt=2 L=2048 H=80 P=64 N=64 chunk=256 (zamba2's "
                      "training microbatch)"})
     print(card)

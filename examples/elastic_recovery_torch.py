@@ -4,23 +4,30 @@ deterministic replay of the data stream, and the final loss matches an
 uninterrupted run's.
 
 The port of ``examples/elastic_recovery.py`` onto ``repro_torch``'s
-``launch.train.main`` (the smoke tinyllama, on the CPU): one clean run,
-one that fails at step 80 and recovers from the step-80 checkpoint; their
-final losses must agree within 1e-3.  Checkpoints go to temporary
-directories, removed at the end.
+``launch.train.main`` (the smoke tinyllama, on the card unless
+``--device cpu``): one clean run, one that fails at step 80 and recovers
+from the step-80 checkpoint; their final losses must agree within 1e-3.
+Checkpoints go to temporary directories, removed at the end.
 
-Run:  PYTHONPATH=src python examples/elastic_recovery_torch.py
+Run:  PYTHONPATH=src python examples/elastic_recovery_torch.py [--device cpu]
 """
+import argparse
 import shutil
 import tempfile
 
+from repro_torch.device import resolve_device
 from repro_torch.launch import train
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--device", default=None,
+                    help="where both runs train (default: the card)")
+    args = ap.parse_args(argv)
+    dev = resolve_device(args.device)
     args_common = ["--arch", "tinyllama-1.1b", "--smoke", "--steps", "120",
                    "--batch", "8", "--seq", "64", "--ckpt-every", "40",
-                   "--lr", "1e-3", "--log-every", "40", "--device", "cpu"]
+                   "--lr", "1e-3", "--log-every", "40", "--device", str(dev)]
     dirs = [tempfile.mkdtemp(prefix="elastic_") for _ in range(2)]
     try:
         clean = train.main(args_common + ["--ckpt-dir", dirs[0]])

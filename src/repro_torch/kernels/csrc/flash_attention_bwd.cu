@@ -18,7 +18,13 @@
 //       key tiles its rows see and sums dQ += dS K the same way.
 // No float atomics: every sum runs in a fixed order, so two calls give the
 // same bits (and a sharded step the unsharded one's).  Tiles that the
-// masks remove entirely are skipped (the forward's tile ranges).
+// masks remove entirely are skipped (the forward's tile ranges).  dK/dV and
+// dQ stay two kernels (S and dP are computed twice: 3.5 times the forward's
+// products, where a dQ summed across key tiles would need 2.5): the
+// deterministic alternative, dQ added in key-tile order into an fp32
+// scratch under a semaphore per query tile (FlashAttention-3), serialises
+// the key tiles of a query tile on that semaphore, and the two-kernel design
+// needs no scratch, no spin and no ordering between blocks.
 //
 // A row that no key is visible to (a window with Sq >= Sk + window) is the
 // plain softmax's uniform 1 / Sk over every key, and masked_fill gives its
@@ -26,26 +32,63 @@
 // pinv * dO_i (pinv = 1 / Sk rounded to v's type, as the plain version's
 // probabilities).  The kernels find such rows from the masks (i >= Sk +
 // window - 1), not from lse (NEG there, with log Sk absorbed), and the
-// dK/dV kernel adds their share after its main loop.
+// dK/dV kernels add their share after their main loop.
 //
-// Precision, as the forward's: bf16 operands on the tensor cores
-// (mma.sync m16n8k16, fp32 sums; P and dS rounded to bf16 as operands, as
-// the forward rounds P), fp32 exactly on the FMA units (no TF32).
+// Two paths, chosen by the wrapper's pure `plan_backward` (path argument):
+//
+// "wgmma" (path 0), for D = Dv in FA_BWD_WGMMA_DIMS (the training head dims
+// 64 and 80, and 128), both dtypes: every product on the tensor cores by
+// warpgroup `wgmma` (64-row tiles, fp32 accumulators in registers), its
+// operand tiles brought by TMA, as the forward's bf16 path.  One kernel
+// template serves dK/dV and dQ (fa_bwd_wgmma<..., DQ>): a block holds a
+// stationary tile of 128 rows (keys with their V rows for dK/dV, queries
+// with their dO rows for dQ; 64 a consumer warpgroup) and streams the other
+// side's tiles (queries with dO, or keys with V; 64 rows, 32 where two
+// stages of 64 do not fit 227 KB) through a two-stage ring in shared memory
+// that one producer thread keeps full by TMA (mbarriers: full with the
+// transaction bytes, empty with one arrival per consumer warp).  A consumer
+// issues S (or S^T) and dP (or dP^T) as shared x shared wgmmas, forms P and
+// dS in the accumulators' registers, and issues dV += P^T dO and
+// dK += dS^T Q (or dQ += dS K) with P and dS as wgmma's register A operand
+// and the streamed tile as an MN-major B (the forward's PV product).
+//   * bf16: one product each, P and dS rounded to bf16 operands (as the
+//     forward rounds P).
+//   * fp32: split bf16 operands, the SSD forward's scheme (mamba2_ssd.cu):
+//     hi = bf16(x), lo = bf16(x - hi) hold x to 2^-17 of itself, and each
+//     product is hi.hi + hi.lo + lo.hi into one fp32 accumulator (the
+//     dropped lo.lo is below 2^-17 of it).  fa_bwd_split writes q, k, v
+//     and dO once a call as contiguous bf16 hi and lo planes, which TMA
+//     reads; P and dS are split in registers.  Three tensor-core products
+//     for each fp32 product, against the FMA units' 67 TFLOP/s.
+//   Shared memory: every tile is 64-column atoms of rows x 128 bytes with
+//   the 128-byte swizzle (the forward's layout; D = 80 takes two atoms,
+//   columns 80..127 zero-filled by TMA), 128 stationary rows and two
+//   stages: 132 KB at fp32 D = 64, 198 KB at fp32 D = 80 or 128 (32-row
+//   stages), 66 / 132 KB in bf16.
+//
+// "general" (path 1), every pair of FA_HEAD_DIMS in both dtypes (MLA
+// 192 / 128, gemma3 240, the smoke pairs): bf16 operands on the tensor
+// cores by mma.sync m16n8k16 (fp32 sums; P and dS rounded to bf16 as
+// operands), fp32 exactly on the FMA units (no TF32).  Operands come from
+// shared memory (fp32: 16 x 16 threads, each a register tile of rows
+// ty + 16 i and columns tx + 16 j, float4 reads along the reduced
+// dimension; bf16: a warp a 16-row strip, fragments read from shared
+// memory, and the S and dP accumulators reused in registers as the next
+// product's A fragments).
 //
 // What bounds it on an H100: about 2.5 times the forward's products (S, dP,
-// dV, dK and dQ; this design computes S and dP twice, once for dK/dV and
-// once for dQ, 3.5 times), so arithmetic: the bf16 tensor cores for bf16,
-// the fp32 FMA units for fp32, as the forward.  Operands come from shared
-// memory (fp32: 16 x 16 threads, each a register tile of rows ty + 16 i and
-// columns tx + 16 j, float4 reads along the reduced dimension; bf16: a warp
-// a 16-row strip, fragments read from shared memory, and the S and dP
-// accumulators reused in registers as the next product's A fragments).
+// dV, dK and dQ; both paths compute S and dP twice, 3.5 times), so
+// arithmetic: the bf16 tensor cores for bf16 and for the split fp32
+// products (three bf16 products each), the fp32 FMA units for the general
+// path's fp32.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+#include <stdio.h>
 
 #include "flash_head_dims.cuh"
+#include "hopper_wgmma.cuh"
 
 namespace {
 
@@ -413,10 +456,6 @@ constexpr int kBfRows = 64;        // query rows of a dQ block (16 a warp)
 constexpr int kBfStep = 32;        // keys a step of the dQ loop
 constexpr int kBfCols = 128;       // output columns a block (wider: passes)
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
@@ -706,6 +745,489 @@ fa_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// "wgmma" path: TMA + warpgroup products, fp32 through split bf16 operands
+// ---------------------------------------------------------------------------
+
+// the D = Dv of the wgmma path (plan_backward reads the list from here)
+#define FA_BWD_WGMMA_DIMS(X) X(64) X(80) X(128)
+
+constexpr int kSplitThreads = 256;
+
+// hi = bf16(x) and lo = bf16(x - hi) of a (b, h, s)-strided fp32 tensor
+// whose rows of W floats are contiguous and 16-byte aligned, into two
+// contiguous (B, Hn, S, W) bf16 planes: 4 elements a thread
+__global__ void __launch_bounds__(kSplitThreads)
+fa_bwd_split(const float* __restrict__ src, long long sb, long long sh,
+             long long ss, int Hn, int S, int W, long long n,
+             bf16* __restrict__ hi, bf16* __restrict__ lo) {
+  const long long e = 4 * ((long long)blockIdx.x * kSplitThreads + threadIdx.x);
+  if (e >= n) return;
+  const long long row = e / W;
+  const int col = (int)(e - row * W), s = (int)(row % S);
+  const long long bh = row / S;
+  const int h = (int)(bh % Hn), b = (int)(bh / Hn);
+  const float4 v =
+      *reinterpret_cast<const float4*>(src + b * sb + h * sh + s * ss + col);
+  const __nv_bfloat162 h0 = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 h1 = __floats2bfloat162_rn(v.z, v.w);
+  const float2 f0 = __bfloat1622float2(h0), f1 = __bfloat1622float2(h1);
+  const __nv_bfloat162 l0 = __floats2bfloat162_rn(v.x - f0.x, v.y - f0.y);
+  const __nv_bfloat162 l1 = __floats2bfloat162_rn(v.z - f1.x, v.w - f1.y);
+  uint2 ho, lw;
+  ho.x = *reinterpret_cast<const uint32_t*>(&h0);
+  ho.y = *reinterpret_cast<const uint32_t*>(&h1);
+  lw.x = *reinterpret_cast<const uint32_t*>(&l0);
+  lw.y = *reinterpret_cast<const uint32_t*>(&l1);
+  *reinterpret_cast<uint2*>(hi + e) = ho;
+  *reinterpret_cast<uint2*>(lo + e) = lw;
+}
+
+// (a, b) as bf16 pairs hi and lo: a = hi.x + lo.x, b = hi.y + lo.y to 2^-17
+__device__ __forceinline__ void split_pair(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// The tiles of the wgmma path at head dims (D, DV), split (fp32) or not:
+// NP planes (hi, and lo where split) of each tile; RS stationary rows (64 a
+// consumer warpgroup), BQ streamed rows a stage, kStages stages.  A tile of
+// W columns is (W + 63) / 64 atoms of rows x 128 bytes, 128-byte swizzled.
+template <int D, int DV, bool SPLIT>
+struct WgTiles {
+  static constexpr int DA = (D + 63) / 64, VA = (DV + 63) / 64;
+  static constexpr int NP = SPLIT ? 2 : 1;
+  static constexpr int NW = 2;                        // consumer warpgroups
+  static constexpr int RS = 64 * NW;
+  static constexpr int kStages = 2;
+  static constexpr int kRowBytes = 128 * (DA + VA) * NP;
+  static constexpr int BQ =
+      (RS + kStages * 64) * kRowBytes + 2048 <= kMaxSmem ? 64 : 32;
+  static constexpr int kThreads = 128 * (NW + 1);
+  static constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+  static constexpr int kAtomX = RS * 128, kAtomY = BQ * 128;
+  // one plane of each tile
+  static constexpr int kX1 = DA * kAtomX, kX2 = VA * kAtomX;
+  static constexpr int kY1 = DA * kAtomY, kY2 = VA * kAtomY;
+  static constexpr int kXBytes = NP * (kX1 + kX2);    // the stationary tiles
+  static constexpr int kYBytes = NP * (kY1 + kY2);    // a stage
+  static constexpr int kYOff = kXBytes;
+  // each stage's streamed rows' (lse log2(e), D) as float2 (dK/dV)
+  static constexpr int kLdOff = kYOff + kStages * kYBytes;
+  static constexpr int kBarOff = kLdOff + kStages * BQ * 8;
+  // + the barriers, + 1024 to align the base to the swizzle's 1024 bytes
+  static constexpr int kSmem = kBarOff + 128 + 1024;
+};
+
+template <bool SPLIT> struct WgType { typedef bf16 T; };
+template <> struct WgType<true> { typedef float T; };
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// acc (+)= X Y^T over the k16 steps of W columns: X the warpgroup's 64
+// stationary rows, Y the stage's streamed rows, both K-major; split:
+// hi.hi + hi.lo + lo.hi
+template <int W, int BQ, int AX, int AY, bool SPLIT>
+__device__ __forceinline__ void wg_scores(float (&acc)[BQ / 2], uint32_t xh,
+                                          uint32_t xl, uint32_t yh,
+                                          uint32_t yl) {
+#pragma unroll
+  for (int kk = 0; kk < W / 16; ++kk) {
+    const uint32_t off_x = (kk / 4) * AX + (kk % 4) * 32;
+    const uint32_t off_y = (kk / 4) * AY + (kk % 4) * 32;
+    wgmma_ss<BQ>(acc, gmma_desc(xh + off_x, 16), gmma_desc(yh + off_y, 16),
+                 kk > 0);
+    if (SPLIT) {
+      wgmma_ss<BQ>(acc, gmma_desc(xh + off_x, 16), gmma_desc(yl + off_y, 16),
+                   1);
+      wgmma_ss<BQ>(acc, gmma_desc(xl + off_x, 16), gmma_desc(yh + off_y, 16),
+                   1);
+    }
+  }
+}
+
+// acc += A Y: A given as the register fragments (hi, lo) of a 64 x BQ
+// accumulator, Y the stage's (BQ, W) tile read MN-major (its W columns
+// contiguous, atoms AY bytes apart); split: hi.hi + hi.lo + lo.hi
+template <int W, int BQ, int AY, bool SPLIT>
+__device__ __forceinline__ void wg_update(float (&acc)[W / 2],
+                                          uint32_t (&ah)[BQ / 16][4],
+                                          uint32_t (&al)[BQ / 16][4],
+                                          uint32_t yh, uint32_t yl) {
+#pragma unroll
+  for (int kk = 0; kk < BQ / 16; ++kk) {
+    wgmma_rs<W>(acc, ah[kk], gmma_desc(yh + kk * 16 * 128, AY));
+    if (SPLIT) {
+      wgmma_rs<W>(acc, ah[kk], gmma_desc(yl + kk * 16 * 128, AY));
+      wgmma_rs<W>(acc, al[kk], gmma_desc(yh + kk * 16 * 128, AY));
+    }
+  }
+}
+
+// the accumulator's values of a 64 x BQ product as bf16 A fragments (hi,
+// and lo where split): its 8 values of 16 columns are the 4 registers of
+// one k16 step
+template <int BQ, bool SPLIT>
+__device__ __forceinline__ void wg_frags(const float (&s)[BQ / 2],
+                                         uint32_t (&h)[BQ / 16][4],
+                                         uint32_t (&l)[BQ / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (SPLIT)
+        split_pair(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1], h[kk][j],
+                   l[kk][j]);
+      else
+        h[kk][j] = pack_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
+    }
+}
+
+// (2) and (3) on the wgmma path.  DQ = false: dK and dV, a block per (key
+// tile of RS keys, kv head, b); the stationary tiles X1, X2 are k and v, the
+// streamed Y1, Y2 q and dO of each query head of the group and each query
+// tile that sees the keys; o1 = dk, o2 = dv.  DQ = true: dQ, a block per
+// (query tile, head, b), latest tiles first; X1, X2 are q and dO, Y1, Y2
+// k and v of each key tile the rows see; o1 = dq.  Maps with suffix l are
+// the lo planes (split) and unused otherwise.  A consumer thread's part of
+// a 64 x BQ accumulator: s[i] is stationary row r0 + 8 ((i >> 1) & 1) and
+// streamed row y_lo + 8 (i >> 2) + cq + (i & 1).
+template <int D, int DV, bool DQ, bool SPLIT>
+__global__ void __launch_bounds__(WgTiles<D, DV, SPLIT>::kThreads, 1)
+fa_bwd_wgmma(const __grid_constant__ CUtensorMap x1h,
+             const __grid_constant__ CUtensorMap x1l,
+             const __grid_constant__ CUtensorMap x2h,
+             const __grid_constant__ CUtensorMap x2l,
+             const __grid_constant__ CUtensorMap y1h,
+             const __grid_constant__ CUtensorMap y1l,
+             const __grid_constant__ CUtensorMap y2h,
+             const __grid_constant__ CUtensorMap y2l,
+             const float* __restrict__ lse, const float* __restrict__ delta,
+             const typename WgType<SPLIT>::T* __restrict__ dout,
+             typename WgType<SPLIT>::T* __restrict__ o1,
+             typename WgType<SPLIT>::T* __restrict__ o2, const Params p) {
+  using W = WgTiles<D, DV, SPLIT>;
+  using T = typename WgType<SPLIT>::T;
+  constexpr int BQ = W::BQ, RS = W::RS, S = W::kStages, NW = W::NW;
+  constexpr int AX = W::kAtomX, AY = W::kAtomY;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  // planes: X1 hi, X1 lo, X2 hi, X2 lo (lo only where split), then the
+  // stages, each Y1 hi, Y1 lo, Y2 hi, Y2 lo
+  const uint32_t sx1h = base, sx1l = sx1h + (SPLIT ? W::kX1 : 0);
+  const uint32_t sx2h = base + W::NP * W::kX1;
+  const uint32_t sx2l = sx2h + (SPLIT ? W::kX2 : 0);
+  auto sy1h = [&](int st) { return base + W::kYOff + st * W::kYBytes; };
+  auto sy1l = [&](int st) { return sy1h(st) + (SPLIT ? W::kY1 : 0); };
+  auto sy2h = [&](int st) { return sy1h(st) + W::NP * W::kY1; };
+  auto sy2l = [&](int st) { return sy2h(st) + (SPLIT ? W::kY2 : 0); };
+  const uint32_t bars = base + W::kBarOff;
+  const uint32_t x_full = bars;
+  auto full = [&](int st) { return bars + 8 * (1 + st); };
+  auto empty = [&](int st) { return bars + 8 * (1 + S + st); };
+
+  const int tid = threadIdx.x, b = blockIdx.z, G = p.H / p.Kh;
+  // the stationary rows [r_lo, r_lo + RS) and their head; the streamed
+  // tiles: n of them, tile it at rows y_lo(it) of head y_head(it)
+  int r_lo, x_head, t_begin, t_end;
+  if (DQ) {
+    const int nqt = (p.Sq + RS - 1) / RS;
+    r_lo = (nqt - 1 - blockIdx.x) * RS;
+    x_head = blockIdx.y;
+    key_tiles(p, r_lo, RS, BQ, t_begin, t_end);
+  } else {
+    r_lo = blockIdx.x * RS;
+    x_head = blockIdx.y;
+    query_tiles(p, r_lo, RS, BQ, t_begin, t_end);
+  }
+  const int per = t_end - t_begin;
+  const int n = DQ ? per : per * G;
+  auto y_lo = [&](int it) {
+    return (t_begin + (DQ ? it : it % max(per, 1))) * BQ;
+  };
+  auto y_head = [&](int it) {
+    return DQ ? x_head / G : x_head * G + it / max(per, 1);
+  };
+
+  if (tid == 0) {
+    mbar_init(x_full, 1);
+    for (int st = 0; st < S; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), 4 * NW);     // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the stage's (lse log2(e), D) of the streamed rows (dK/dV), generic
+  const auto ld_of = [&](int st) {
+    return reinterpret_cast<float2*>(smem_raw + (base - smem_u32(smem_raw)) +
+                                     W::kLdOff + st * BQ * 8);
+  };
+
+  if (tid < 128) {
+    // ---- producer warpgroup: one thread issues every TMA load; for
+    // dK/dV its warp stages the streamed rows' lse and D ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(W::kProducerRegs) : "memory");
+    if (tid == 0) {
+      mbar_expect_tx(x_full, W::kXBytes);
+#pragma unroll
+      for (int a = 0; a < W::DA; ++a) {
+        tma_load(sx1h + a * AX, &x1h, a * 64, r_lo, x_head, b, x_full);
+        if (SPLIT)
+          tma_load(sx1l + a * AX, &x1l, a * 64, r_lo, x_head, b, x_full);
+      }
+#pragma unroll
+      for (int a = 0; a < W::VA; ++a) {
+        tma_load(sx2h + a * AX, &x2h, a * 64, r_lo, x_head, b, x_full);
+        if (SPLIT)
+          tma_load(sx2l + a * AX, &x2l, a * 64, r_lo, x_head, b, x_full);
+      }
+    }
+    if (tid < 32) {
+      for (int it = 0; it < n; ++it) {
+        const int st = it % S, yl = y_lo(it), yh = y_head(it);
+        mbar_wait(empty(st), ((it / S) & 1) ^ 1);
+        if (!DQ) {
+          const long long row0 = ((long long)b * p.H + yh) * p.Sq;
+          for (int c = tid; c < BQ; c += 32) {
+            const bool in = yl + c < p.Sq;
+            ld_of(st)[c] = make_float2(
+                in ? lse[row0 + yl + c] * kLog2e : 0.0f,
+                in ? delta[row0 + yl + c] : 0.0f);
+          }
+          __syncwarp();            // the rows are written before the arrive
+        }
+        if (tid == 0) {
+          mbar_expect_tx(full(st), W::kYBytes);
+#pragma unroll
+          for (int a = 0; a < W::DA; ++a) {
+            tma_load(sy1h(st) + a * AY, &y1h, a * 64, yl, yh, b, full(st));
+            if (SPLIT)
+              tma_load(sy1l(st) + a * AY, &y1l, a * 64, yl, yh, b, full(st));
+          }
+#pragma unroll
+          for (int a = 0; a < W::VA; ++a) {
+            tma_load(sy2h(st) + a * AY, &y2h, a * 64, yl, yh, b, full(st));
+            if (SPLIT)
+              tma_load(sy2l(st) + a * AY, &y2l, a * 64, yl, yh, b, full(st));
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroups: 64 stationary rows each ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+               :: "n"(W::kConsumerRegs) : "memory");
+  const int wg = tid / 128 - 1, warp = (tid / 32) & 3, lane = tid & 31;
+  const int r0 = r_lo + wg * 64 + warp * 16 + lane / 4;   // rows r0, r0 + 8
+  const int cq = (lane & 3) * 2;
+  const uint32_t xo = wg * 64 * 128;           // this warpgroup's rows
+  const float sl2 = p.scale * kLog2e;
+  // dQ: lse (base 2) and D of the thread's two query rows
+  float lr[2] = {0.0f, 0.0f}, dr[2] = {0.0f, 0.0f};
+  if constexpr (DQ) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = r0 + 8 * r;
+      const long long at = ((long long)b * p.H + x_head) * p.Sq + qi;
+      lr[r] = qi < p.Sq ? lse[at] * kLog2e : 0.0f;
+      dr[r] = qi < p.Sq ? delta[at] : 0.0f;
+    }
+  }
+  float acc1[D / 2], acc2[DV / 2];     // dK and dV, or dQ (acc2 unused)
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc1[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < DV / 2; ++i) acc2[i] = 0.0f;
+
+  // Tile it + 1's S and dP are issued before tile it's updates, and its
+  // P and dS formed while those run on the tensor cores (the forward's
+  // QK / PV overlap).  Tile it's P and dS go into the A fragments before
+  // tile it + 1's scores overwrite s and dp, and after tile it - 1's
+  // updates, which read the fragments, are done.
+  float s[BQ / 2], dp[BQ / 2];
+  uint32_t ph[BQ / 16][4], pl[BQ / 16][4], dh[BQ / 16][4], dl[BQ / 16][4];
+  auto scores = [&](int it) {        // S and dP of tile it: one group
+    const int st = it % S;
+    mbar_wait(full(st), (it / S) & 1);
+    pin(s);
+    pin(dp);
+    wgmma_fence();
+    wg_scores<D, BQ, AX, AY, SPLIT>(s, sx1h + xo, sx1l + xo, sy1h(st),
+                                    sy1l(st));
+    wg_scores<DV, BQ, AX, AY, SPLIT>(dp, sx2h + xo, sx2l + xo, sy2h(st),
+                                     sy2l(st));
+    wgmma_commit();
+  };
+  // P = exp(S scale - lse) where the masks keep (query, key), else 0;
+  // dS = P o (dP - D)
+  auto softmax = [&](int it) {
+    pin(s);
+    pin(dp);
+    const int yl = y_lo(it);
+    const float2* ld = ld_of(it % S);
+#pragma unroll
+    for (int c8 = 0; c8 < BQ / 8; ++c8)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = yl + 8 * c8 + cq + e;
+        const float2 lc = DQ ? make_float2(0.0f, 0.0f) : ld[8 * c8 + cq + e];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int i = 4 * c8 + 2 * r + e, row = r0 + 8 * r;
+          const int qi = DQ ? row : col, kj = DQ ? col : row;
+          const float l2 = DQ ? lr[r] : lc.x, d = DQ ? dr[r] : lc.y;
+          const float pv = key_ok(p, qi, kj)
+                               ? exp2f(fmaf(s[i], sl2, -l2)) : 0.0f;
+          s[i] = pv;
+          dp[i] = pv * (dp[i] - d);
+        }
+      }
+  };
+  auto pack = [&]() {                // P and dS into the A fragments
+    if constexpr (!DQ) wg_frags<BQ, SPLIT>(s, ph, pl);
+    wg_frags<BQ, SPLIT>(dp, dh, dl);
+  };
+  auto update = [&](int it) {        // dV, dK or dQ of tile it: one group
+    const int st = it % S;
+    pin(acc1);
+    pin(dh);
+    if constexpr (SPLIT) pin(dl);
+    if constexpr (!DQ) {
+      pin(acc2);
+      pin(ph);
+      if constexpr (SPLIT) pin(pl);
+    }
+    wgmma_fence();
+    if constexpr (!DQ)
+      wg_update<DV, BQ, AY, SPLIT>(acc2, ph, pl, sy2h(st), sy2l(st));
+    wg_update<D, BQ, AY, SPLIT>(acc1, dh, dl, sy1h(st), sy1l(st));
+    wgmma_commit();
+  };
+  auto done = [&](int it) {          // tile it's updates are done
+    pin(acc1);
+    if constexpr (!DQ) pin(acc2);
+    __syncwarp();
+    mbar_arrive_if(empty(it % S), lane == 0);
+  };
+  // The outputs: dK times scale and dV, or dQ times scale.  `first` writes
+  // them; else (fp32 dK/dV) adds to what an earlier flush wrote.  The fp32
+  // dK/dV are flushed there after each query head of the group, so that
+  // no accumulator sums more than one head's rows: the tensor cores' fp32
+  // sums lose more the longer they run (on an H100, dK/dV summed over a
+  // GQA group of 8 heads of 2048 rows were 8.5e-5 from the plain backward's
+  // against a bound of 1e-4), and a flush is one fp32 add an element.
+  const long long ob1 = DQ ? b * p.sdq[0] + x_head * p.sdq[1]
+                           : b * p.sdk[0] + x_head * p.sdk[1];
+  const long long os1 = DQ ? p.sdq[2] : p.sdk[2];
+  const long long ob2 = b * p.sdv[0] + x_head * p.sdv[1];
+  const int rows = DQ ? p.Sq : p.Sk;
+  auto emit = [&](bool first) {
+#pragma unroll
+    for (int g8 = 0; g8 < D / 8; ++g8)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = r0 + 8 * r;
+        if (row >= rows) continue;
+        T* at = o1 + ob1 + row * os1 + 8 * g8 + cq;
+        float u = acc1[4 * g8 + 2 * r] * p.scale;
+        float w = acc1[4 * g8 + 2 * r + 1] * p.scale;
+        if constexpr (SPLIT) {
+          if (!first) {
+            const float2 old = *reinterpret_cast<const float2*>(at);
+            u += old.x;
+            w += old.y;
+          }
+        }
+        store2(at, u, w);
+      }
+    if constexpr (!DQ) {
+#pragma unroll
+      for (int g8 = 0; g8 < DV / 8; ++g8)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = r0 + 8 * r;
+          if (row >= p.Sk) continue;
+          T* at = o2 + ob2 + row * p.sdv[2] + 8 * g8 + cq;
+          float u = acc2[4 * g8 + 2 * r], w = acc2[4 * g8 + 2 * r + 1];
+          if constexpr (SPLIT) {
+            if (!first) {
+              const float2 old = *reinterpret_cast<const float2*>(at);
+              u += old.x;
+              w += old.y;
+            }
+          }
+          store2(at, u, w);
+        }
+    }
+  };
+  int flushed = 0;
+  mbar_wait(x_full, 0);
+  if (n > 0) {
+    scores(0);
+    wgmma_wait<0>();
+    softmax(0);
+    for (int it = 0; it < n - 1; ++it) {
+      pack();                      // before tile it + 1's scores overwrite s
+      scores(it + 1);
+      update(it);
+      wgmma_wait<1>();             // tile it + 1's scores are done
+      softmax(it + 1);
+      wgmma_wait<0>();
+      done(it);
+      if constexpr (SPLIT && !DQ) {
+        if ((it + 1) % per == 0) {   // a query head of the group is done
+          emit(flushed++ == 0);
+#pragma unroll
+          for (int i = 0; i < D / 2; ++i) acc1[i] = 0.0f;
+#pragma unroll
+          for (int i = 0; i < DV / 2; ++i) acc2[i] = 0.0f;
+        }
+      }
+    }
+    pack();
+    update(n - 1);
+    wgmma_wait<0>();
+    done(n - 1);
+  }
+
+  // the rows no key is visible to: pinv dO_i into every key's dV
+  if constexpr (!DQ) {
+    const int blind = first_blind_row(p);
+#pragma unroll
+    for (int g8 = 0; g8 < DV / 8; ++g8) {
+      if (blind >= p.Sq) break;
+      const int col = 8 * g8 + cq;
+      float add[2] = {0.0f, 0.0f};
+      for (int hg = 0; hg < G; ++hg) {
+        const T* src = dout + b * p.sdo[0] + (x_head * G + hg) * p.sdo[1] + col;
+        for (int i = blind; i < p.Sq; ++i) {
+          add[0] += to_f(src[i * p.sdo[2]]);
+          add[1] += to_f(src[i * p.sdo[2] + 1]);
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc2[4 * g8 + e] = fmaf(p.pinv, add[e & 1], acc2[4 * g8 + e]);
+    }
+  }
+  emit(flushed == 0);
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
@@ -713,6 +1235,7 @@ struct Ptrs {
   const void *q, *k, *v, *o, *dout;
   const float* lse;
   float* delta;
+  void* split;         // the wgmma path's fp32 hi and lo planes (scratch)
   void *dq, *dk, *dv;
 };
 
@@ -781,7 +1304,89 @@ int launch_bf16(const Ptrs& a, const Params& p, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-int launch(int dtype, const Ptrs& a, const Params& p, cudaStream_t st) {
+
+template <int D, int DV, bool SPLIT>
+int launch_wgmma(const Ptrs& a, const Params& p, cudaStream_t st) {
+  using W = WgTiles<D, DV, SPLIT>;
+  using T = typename WgType<SPLIT>::T;
+  static_assert(W::kSmem <= kMaxSmem, "the wgmma backward tiles exceed 227 KB");
+  int err = launch_delta<T>(a, p, st);
+  if (err) return err;
+  // what TMA reads of q, k, v and dO: the bf16 tensors as they are, the
+  // fp32 ones as bf16 hi and lo planes written here, contiguous
+  struct Src {
+    const void *hi, *lo;
+    int heads, rows, width;
+    long long ss, sh, sb;
+  };
+  auto as_is = [&](const void* t, const long long* s, int heads, int rows,
+                   int width) {
+    return Src{t, t, heads, rows, width, s[2], s[1], s[0]};
+  };
+  Src srcs[4] = {as_is(a.q, p.sq, p.H, p.Sq, D),
+                 as_is(a.k, p.sk, p.Kh, p.Sk, D),
+                 as_is(a.v, p.sv, p.Kh, p.Sk, DV),
+                 as_is(a.dout, p.sdo, p.H, p.Sq, DV)};
+  if (SPLIT) {
+    bf16* plane = static_cast<bf16*>(a.split);
+    for (Src& t : srcs) {
+      const long long n = (long long)p.B * t.heads * t.rows * t.width;
+      bf16 *hi = plane, *lo = plane + n;
+      plane += 2 * n;
+      fa_bwd_split<<<(unsigned)((n / 4 + kSplitThreads - 1) / kSplitThreads),
+                     kSplitThreads, 0, st>>>(
+          static_cast<const float*>(t.hi), t.sb, t.sh, t.ss, t.heads, t.rows,
+          t.width, n, hi, lo);
+      if ((err = (int)cudaGetLastError())) return err;
+      t = Src{hi, lo, t.heads, t.rows, t.width, t.width,
+              (long long)t.rows * t.width,
+              (long long)t.heads * t.rows * t.width};
+    }
+  }
+  // maps of each plane in boxes of the stationary (RS) and the streamed
+  // (BQ) rows: [tensor][box][plane]
+  CUtensorMap maps[4][2][2];
+  for (int i = 0; i < 4; ++i)
+    for (int box = 0; box < 2; ++box)
+      for (int pl = 0; pl < 2; ++pl) {
+        const Src& t = srcs[i];
+        if ((err = make_map(&maps[i][box][pl], pl ? t.lo : t.hi, t.width,
+                            t.rows, t.heads, p.B, t.ss, t.sh, t.sb,
+                            box ? W::BQ : W::RS)))
+          return err;
+      }
+  enum { Q, K, V, DO };
+  auto kdkdv = &fa_bwd_wgmma<D, DV, false, SPLIT>;
+  if ((err = set_smem(kdkdv, W::kSmem))) return err;
+  kdkdv<<<dim3((p.Sk + W::RS - 1) / W::RS, p.Kh, p.B), W::kThreads, W::kSmem,
+          st>>>(maps[K][0][0], maps[K][0][1], maps[V][0][0], maps[V][0][1],
+                maps[Q][1][0], maps[Q][1][1], maps[DO][1][0], maps[DO][1][1],
+                a.lse, a.delta, static_cast<const T*>(a.dout),
+                static_cast<T*>(a.dk), static_cast<T*>(a.dv), p);
+  if ((err = (int)cudaGetLastError())) return err;
+  auto kdq = &fa_bwd_wgmma<D, DV, true, SPLIT>;
+  if ((err = set_smem(kdq, W::kSmem))) return err;
+  kdq<<<dim3((p.Sq + W::RS - 1) / W::RS, p.H, p.B), W::kThreads, W::kSmem,
+        st>>>(maps[Q][0][0], maps[Q][0][1], maps[DO][0][0], maps[DO][0][1],
+              maps[K][1][0], maps[K][1][1], maps[V][1][0], maps[V][1][1],
+              a.lse, a.delta, static_cast<const T*>(a.dout),
+              static_cast<T*>(a.dq), static_cast<T*>(a.dq), p);
+  return (int)cudaGetLastError();
+}
+
+// path 0 ("wgmma"): the pairs of FA_BWD_WGMMA_DIMS; path 1 ("general"):
+// every pair of FA_HEAD_DIMS
+int launch(int dtype, int path, const Ptrs& a, const Params& p,
+           cudaStream_t st) {
+  if (path == 0) {
+#define FA_WG(D_)                                                 \
+    if (p.D == D_ && p.Dv == D_)                                  \
+      return dtype ? launch_wgmma<D_, D_, false>(a, p, st)        \
+                   : launch_wgmma<D_, D_, true>(a, p, st);
+    FA_BWD_WGMMA_DIMS(FA_WG)
+#undef FA_WG
+    return (int)cudaErrorInvalidValue;
+  }
 #define FA_CASE(D_, DV_)                                          \
   if (p.D == D_ && p.Dv == DV_)                                   \
     return dtype ? launch_bf16<D_, DV_>(a, p, st)                 \
@@ -795,24 +1400,29 @@ int launch(int dtype, const Ptrs& a, const Params& p, cudaStream_t st) {
 
 extern "C" {
 
-// dtype: 0 = fp32, 1 = bf16 (q, k, v, o, do, dq, dk and dv alike).  lse is
-// the forward's fp32 (B, H, Sq) log-sum-exp (fa_forward_lse), delta an fp32
-// (B, H, Sq) scratch.  strides holds 24 element strides, over (b, h, s) of
-// q, k, v, o, do, dq, dk and dv in that order; the feature dimension of each
-// is contiguous, (D, Dv) is a pair of FA_HEAD_DIMS, and the base addresses
-// and strides of q, k, v and do are multiples of 16 bytes.  pinv is the
-// weight that a row no key is visible to gives each key (1 / Sk in v's
-// type).  Three launches on `stream`; returns the first cudaError_t code that
-// is not 0, else 0.
-int fa_backward(int dtype, const void* q, const void* k, const void* v,
-                const void* o, const void* dout, const float* lse,
-                float* delta, void* dq, void* dk, void* dv, int B, int H,
-                int Kh, int Sq, int Sk, int D, int Dv,
-                const long long* strides, float scale, int causal, int window,
-                float pinv, void* stream) {
+// dtype: 0 = fp32, 1 = bf16 (q, k, v, o, do, dq, dk and dv alike).  path:
+// 0 = wgmma (D = Dv in FA_BWD_WGMMA_DIMS), 1 = general (any pair of
+// FA_HEAD_DIMS).  lse is the forward's fp32 (B, H, Sq) log-sum-exp
+// (fa_forward_lse), delta an fp32 (B, H, Sq) scratch, split (the wgmma
+// path in fp32; else not read) a bf16 scratch of twice the elements of q,
+// k, v and do together.  strides holds 24 element strides, over (b, h, s)
+// of q, k, v, o, do, dq, dk and dv in that order (0 where a dimension has
+// size 1); the feature dimension of each is contiguous, and the base
+// addresses and strides of q, k, v and do are multiples of 16 bytes.  pinv
+// is the weight that a row no key is visible to gives each key (1 / Sk in
+// v's type).  Three launches on `stream` (seven on the fp32 wgmma path);
+// returns the first error code that is not 0 (a cudaError_t, or from
+// kErrTensorMap on a tensor map that could not be made), else 0.
+int fa_backward(int dtype, int path, const void* q, const void* k,
+                const void* v, const void* o, const void* dout,
+                const float* lse, float* delta, void* split, void* dq,
+                void* dk, void* dv, int B, int H, int Kh, int Sq, int Sk,
+                int D, int Dv, const long long* strides, float scale,
+                int causal, int window, float pinv, void* stream) {
   if (B < 1 || H < 1 || Kh < 1 || H % Kh != 0 || Sq < 1 || Sk < 1 ||
-      window < 0 || (dtype != 0 && dtype != 1) || B > 65535 ||
-      (long long)H * 2 > 65535)
+      window < 0 || (dtype != 0 && dtype != 1) || (path != 0 && path != 1) ||
+      B > 65535 || (long long)H * 2 > 65535 ||
+      (path == 0 && dtype == 0 && !split))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.B = B; p.H = H; p.Kh = Kh; p.Sq = Sq; p.Sk = Sk; p.D = D; p.Dv = Dv;
@@ -823,11 +1433,19 @@ int fa_backward(int dtype, const void* q, const void* k, const void* v,
   p.causal = causal;
   p.window = window;
   p.pinv = pinv;
-  Ptrs a{q, k, v, o, dout, lse, delta, dq, dk, dv};
-  return launch(dtype, a, p, static_cast<cudaStream_t>(stream));
+  Ptrs a{q, k, v, o, dout, lse, delta, split, dq, dk, dv};
+  return launch(dtype, path, a, p, static_cast<cudaStream_t>(stream));
 }
 
 const char* fa_backward_error_string(int code) {
+  static char msg[96];
+  if (code == kErrTensorMap)
+    return "cuTensorMapEncodeTiled is not available";
+  if (code > kErrTensorMap) {
+    snprintf(msg, sizeof msg, "cuTensorMapEncodeTiled refused a map "
+             "(CUresult %d)", code - kErrTensorMap);
+    return msg;
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -63,9 +63,11 @@ from repro_torch.kernels import _build, trace
 NEG = -2.0e38
 
 # launches of the CUDA forward kernel, and of the backward kernels (one a
-# backward call: its three kernels)
+# backward call: its three kernels, seven on the fp32 wgmma path)
 launches = 0
 backward_launches = 0
+# the path ("wgmma" or "general") of the last backward call on the card
+last_backward_plan = None
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
@@ -108,9 +110,9 @@ _LSE_SIGNATURES = {
     "fa_error_string": ([_ci], ctypes.c_char_p),
 }
 _BWD_SIGNATURES = {
-    "fa_backward": ([_ci, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
-                     _ci, _ci, _ci, _ci, _ci, _ci, _ci, _strides, _cf, _ci,
-                     _ci, _cf, _vp], _ci),
+    "fa_backward": ([_ci, _ci, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+                     _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _strides,
+                     _cf, _ci, _ci, _cf, _vp], _ci),
     "fa_backward_error_string": ([_ci], ctypes.c_char_p),
 }
 
@@ -251,6 +253,41 @@ def supported_head_dims() -> tuple:
                  for d, dv in re.findall(r"X\((\d+), (\d+)\)", body[1]))
 
 
+# the backward's paths (``plan_backward``): "wgmma" (TMA and warpgroup
+# products; fp32 through split bf16 operands) for D = Dv in
+# ``wgmma_head_dims()``, "general" (mma.sync in bf16, FMAs in fp32) for
+# every other pair of ``supported_head_dims()``
+BACKWARD_PATHS = ("wgmma", "general")
+
+
+@functools.cache
+def wgmma_head_dims() -> tuple:
+    """The D = Dv of the backward's wgmma path: ``FA_BWD_WGMMA_DIMS`` in
+    ``csrc/flash_attention_bwd.cu``, read from there."""
+    src = (_build.CSRC / "flash_attention_bwd.cu").read_text()
+    body = re.search(r"#define FA_BWD_WGMMA_DIMS\(X\)(.*)", src)
+    if body is None:
+        raise RuntimeError("flash_attention_bwd.cu defines no "
+                           "FA_BWD_WGMMA_DIMS")
+    return tuple(int(d) for d in re.findall(r"X\((\d+)\)", body[1]))
+
+
+def plan_backward(D: int, Dv: int, dtype) -> str:
+    """The path a backward call at head dims (D, Dv) (a pair of
+    ``supported_head_dims()``, as the kernels run it) in ``dtype`` takes:
+    ``"wgmma"`` for D = Dv in ``wgmma_head_dims()``, else ``"general"``;
+    raises for a pair no path takes.  Every instance of either path fits a
+    block's shared memory: the source's static_asserts hold it to 227 KB."""
+    if (D, Dv) not in supported_head_dims():
+        raise ValueError(f"flash_attention_backward: no kernel for head dims "
+                         f"D={D}, Dv={Dv}")
+    if dtype not in _DTYPE_CODE:
+        raise ValueError(f"flash_attention_backward: no kernel for {dtype}")
+    if D == Dv and D in wgmma_head_dims():
+        return "wgmma"
+    return "general"
+
+
 def _tma_strides(t):
     """t's element strides over (b, h, s), 0 for a dimension of size 1
     (never stepped); raises unless the base address and every stride that
@@ -359,18 +396,24 @@ def _aligned(t):
     return t if ok else t.contiguous()
 
 
-def _flash_backward_cuda(q, k, v, o, lse, do, causal, window, scale=None):
-    """(dq, dk, dv), contiguous, from the backward kernels."""
-    global backward_launches
+def _flash_backward_cuda(q, k, v, o, lse, do, causal, window, scale=None,
+                         path=None):
+    """(dq, dk, dv), contiguous, from the backward kernels on the path
+    ``plan_backward`` gives.  ``path="general"`` is for the card's checks
+    only: it holds the general path against the plain backward at pairs the
+    wgmma path takes too; training never passes it."""
+    global backward_launches, last_backward_plan
     if q.dtype not in _DTYPE_CODE or len({q.dtype, k.dtype, v.dtype, o.dtype,
                                           do.dtype}) != 1:
         raise ValueError(f"flash_attention_backward: no kernel for "
                          f"{q.dtype}, {do.dtype}")
     B, H, Sq, D = q.shape
     Kh, Sk, Dv = k.shape[1], k.shape[2], v.shape[3]
-    if (D, Dv) not in supported_head_dims():
-        raise ValueError(f"flash_attention_backward: no kernel for head dims "
-                         f"D={D}, Dv={Dv}")
+    planned = plan_backward(D, Dv, q.dtype)
+    path = path or planned
+    if path not in (planned, "general"):
+        raise ValueError(f"flash_attention_backward: no {path} path for "
+                         f"D={D}, Dv={Dv} in {q.dtype}")
     if tuple(lse.shape) != (B, H, Sq) or lse.dtype != torch.float32 or \
             not lse.is_contiguous():
         raise ValueError("flash_attention_backward: lse must be a contiguous "
@@ -386,41 +429,52 @@ def _flash_backward_cuda(q, k, v, o, lse, do, causal, window, scale=None):
     dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device)
                   for t in (q, k, v))
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    # the fp32 wgmma path's bf16 hi and lo planes of q, k, v and dO
+    split = torch.empty(
+        (2 * sum(t.numel() for t in (q, k, v, do))
+         if path == "wgmma" and q.dtype == torch.float32 else 1,),
+        dtype=torch.bfloat16, device=q.device)
     tensors = (q, k, v, o, do, dq, dk, dv)
-    strides = (ctypes.c_longlong * 24)(*(st for t in tensors
-                                         for st in t.stride()[:3]))
+    strides = (ctypes.c_longlong * 24)(*(st if n > 1 else 0 for t in tensors
+                                         for n, st in zip(t.shape[:3],
+                                                          t.stride()[:3])))
     # the plain softmax's weight of a row that no key is visible to, as it
     # casts its probabilities to v's dtype
     pinv = float(torch.tensor(1.0 / Sk, dtype=torch.float32).to(v.dtype))
     lib = _backward_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.fa_backward(_DTYPE_CODE[q.dtype],
+        err = lib.fa_backward(_DTYPE_CODE[q.dtype], BACKWARD_PATHS.index(path),
                               *(t.data_ptr() for t in tensors[:5]),
                               lse.data_ptr(), delta.data_ptr(),
+                              split.data_ptr(),
                               *(t.data_ptr() for t in tensors[5:]), B, H, Kh,
                               Sq, Sk, D, Dv, strides,
                               D ** -0.5 if scale is None else scale,
                               int(causal), int(window), pinv, stream)
     if err != 0:
-        raise RuntimeError("flash_attention_backward: kernel launch failed: "
+        raise RuntimeError(f"flash_attention_backward: {path} kernel launch "
+                           "failed: "
                            + lib.fa_backward_error_string(err).decode())
     backward_launches += 1
+    last_backward_plan = path
     return dq, dk, dv
 
 
-def _cuda_backward(q, k, v, o, lse, do, causal, window):
-    """The backward kernels on CUDA tensors, head dims they have no instance
-    for padded as the forward pads them (zero columns add nothing to any
-    score, output or gradient) and the gradients cut back."""
+def _cuda_backward(q, k, v, o, lse, do, causal, window, path=None):
+    """The backward kernels on CUDA tensors (on ``path``, as
+    ``_flash_backward_cuda``), head dims they have no instance for padded
+    as the forward pads them (zero columns add nothing to any score, output
+    or gradient) and the gradients cut back."""
     D, Dv = q.shape[3], v.shape[3]
     P, Pv = padded_head_dims(D, Dv)
     if (P, Pv) == (D, Dv) or P > 256:
-        return _flash_backward_cuda(q, k, v, o, lse, do, causal, window)
+        return _flash_backward_cuda(q, k, v, o, lse, do, causal, window,
+                                    path=path)
     g = _flash_backward_cuda(F.pad(q, (0, P - D)), F.pad(k, (0, P - D)),
                              F.pad(v, (0, Pv - Dv)), F.pad(o, (0, Pv - Dv)),
                              lse, F.pad(do, (0, Pv - Dv)), causal, window,
-                             scale=D ** -0.5)
+                             scale=D ** -0.5, path=path)
     return tuple(t[..., :n].contiguous() for t, n in zip(g, (D, D, Dv)))
 
 

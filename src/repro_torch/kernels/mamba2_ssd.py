@@ -34,8 +34,11 @@ Training differentiates through ``MambaSSD``: the kernel forward, and as
 backward on the card the hand-written backward kernels in
 ``csrc/mamba2_ssd_bwd.cu`` (the forward's stages reversed: chunk states,
 a forward and a reverse state pass, the chunk gradients, the sums over
-heads; fp32 FMAs, no float atomics), two paths chosen by the pure
-function ``plan_backward``; on the CPU the gradient of the plain version
+heads; no float atomics), two paths chosen by the pure function
+``plan_backward``: the chunk states and gradients on the tensor cores
+(mma.sync, fp32 factors split into bf16 hi and lo, as the forward's
+staged path) at the training shapes, else on the FMA units; on the CPU
+the gradient of the plain version
 for x, dt, A, B and C in plain PyTorch (``mamba2_ssd_backward``, a
 sequence at a time), which the kernels are held against on the card.
 The final state takes no gradient.
@@ -63,7 +66,7 @@ STAGED_MAX_CHUNK = 256      # its largest chunk (kMaxChunk)
 launches = 0
 backward_launches = 0
 # the path ("staged" or "general") of the last call on the card, and of
-# the last backward call ("fast" or "general")
+# the last backward call ("tensor" or "general")
 last_plan = None
 last_backward_plan = None
 
@@ -82,7 +85,6 @@ _SIGNATURES = {
 _BWD_SIGNATURES = {
     "ssd_backward": ([_ci, _ci, *[_vp] * 18, _ci, _ci, _ci, _ci, _ci, _ci,
                       _strides, _vp], _ci),
-    "ssd_backward_smem": ([_ci, _ci, _ci, _ci], ctypes.c_longlong),
     "ssd_backward_error_string": ([_ci], ctypes.c_char_p),
 }
 _lib = None
@@ -122,45 +124,50 @@ def _backward_library():
     return _bwd_lib
 
 
-# the backward's paths: "fast" (P and N up to FAST_DIM, 64-row tiles, the
-# chunk's state and per-row arrays in shared memory), "general" (up to
-# MAX_DIM, 32-row tiles, the per-row arrays in a global scratch of
-# ROW_ARRAYS x chunk floats a (sequence, chunk, head))
-FAST_DIM = 64
+# the backward's paths: "general" (up to MAX_DIM, FMAs, 32-row tiles, the
+# per-row arrays in a global scratch of ROW_ARRAYS x chunk floats a
+# (sequence, chunk, head)), "tensor" (P and N in TC_DIMS, a chunk that is a
+# multiple of 16 up to TC_MAX_CHUNK, aligned x, B and C: the chunk states
+# and gradients on the tensor cores, fp32 factors split into bf16 hi and
+# lo, the whole chunk's tiles in shared memory, which the source's
+# static_assert fits within a block at TC_MAX_CHUNK)
+BACKWARD_PATHS = ("general", "tensor")   # the C side's path codes
+TC_DIMS = (16, 32, 64)     # SSD_BWD_TC_DIMS
+TC_MAX_CHUNK = 256         # kTcMaxChunk
 MAX_SMEM = 232448          # shared memory a block may take (227 KB)
 ROW_ARRAYS = 5             # kRowArrays
 
 
-def backward_smem(path: str, P: int, N: int, chunk: int) -> int:
-    """Bytes of shared memory the backward's chunk kernel takes on ``path``
-    (``chunk_smem_floats`` in ``csrc/mamba2_ssd_bwd.cu``): the x dt and dy
-    tiles, the B and C tiles, two score tiles, the row sums' partials, on
-    the fast path the state entering the chunk, its gradient and the
-    per-row arrays, the cumulative log-decay."""
-    rt = 64 if path == "fast" else 32
+def backward_smem(P: int, N: int, chunk: int) -> int:
+    """Bytes of shared memory the general path's chunk kernel takes
+    (``chunk_smem_floats`` in ``csrc/mamba2_ssd_bwd.cu``, 32-row tiles): the
+    x dt and dy tiles, the B and C tiles, two score tiles, the row sums'
+    partials, the cumulative log-decay."""
+    rt = 32
     p4, n4 = -(-P // 4) * 4, -(-N // 4) * 4
     floats = 2 * rt * (p4 + 4) + 2 * rt * (n4 + 4) + 2 * rt * (rt + 4) + \
-        16 * rt + (2 * P * (n4 + 4) + ROW_ARRAYS * chunk
-                   if path == "fast" else 0) + chunk + 16
+        16 * rt + chunk + 16
     return 4 * floats
 
 
-def plan_backward(P: int, N: int, chunk: int) -> str:
-    """The path a backward call takes: ``"fast"`` for P and N up to
-    ``FAST_DIM`` where its shared memory fits, else ``"general"`` (P and N
-    up to ``MAX_DIM``); raises where neither fits (a chunk of tens of
-    thousands of rows, beyond what the forward takes)."""
+def plan_backward(P: int, N: int, chunk: int, aligned: bool = True) -> str:
+    """The path a backward call takes: ``"tensor"`` for P and N in
+    ``TC_DIMS``, a chunk that is a multiple of 16 up to ``TC_MAX_CHUNK`` and
+    ``aligned`` x, B and C (16-byte addresses and row strides); else
+    ``"general"`` (P and N up to ``MAX_DIM``) where its shared memory fits;
+    raises where neither does (a chunk of tens of thousands of rows, beyond
+    what the forward takes)."""
     if max(P, N) > MAX_DIM:
         raise ValueError(f"mamba2_ssd_backward: P={P}, N={N} above the "
                          f"kernel's {MAX_DIM}")
-    if max(P, N) <= FAST_DIM and backward_smem("fast", P, N, chunk) <= \
-            MAX_SMEM:
-        return "fast"
-    if backward_smem("general", P, N, chunk) <= MAX_SMEM:
+    if P in TC_DIMS and N in TC_DIMS and chunk % 16 == 0 and \
+            chunk <= TC_MAX_CHUNK and aligned:
+        return "tensor"
+    if backward_smem(P, N, chunk) <= MAX_SMEM:
         return "general"
     raise ValueError(f"mamba2_ssd_backward: a chunk of {chunk} rows needs "
-                     f"{backward_smem('general', P, N, chunk)} bytes of "
-                     f"shared memory, above {MAX_SMEM}")
+                     f"{backward_smem(P, N, chunk)} bytes of shared memory, "
+                     f"above {MAX_SMEM}")
 
 
 def plan(P: int, N: int, chunk: int, aligned: bool) -> str:
@@ -343,11 +350,11 @@ def _ssd_fake(x, dt, A, B, C, chunk):
 
 def _ssd_backward_cuda(x, dt, A, B, C, dy, chunk: int):
     """(dx, ddt, dA, dB, dC) from the backward kernels, each in its input's
-    dtype (dA summed in fp32)."""
+    dtype (dA summed in fp32), on the path ``plan_backward`` gives."""
     global backward_launches, last_backward_plan
     Bt, L, H, P = x.shape
     N = B.shape[-1]
-    path = plan_backward(P, N, chunk)
+    path = plan_backward(P, N, chunk, aligned(x, B, C))
     dev, nc, n4 = x.device, L // chunk, -(-N // 4) * 4
     dy = dy.to(torch.float32).contiguous()
     dx = torch.empty((Bt, L, H, P), dtype=x.dtype, device=dev)
@@ -362,8 +369,7 @@ def _ssd_backward_cuda(x, dt, A, B, C, dy, chunk: int):
                torch.empty((Bt, L, H, N), **f32),          # dB a head
                torch.empty((Bt, L, H, N), **f32),          # dC a head
                torch.empty((Bt, nc, H), **f32),            # dA a chunk
-               torch.empty((Bt, nc, H, ROW_ARRAYS, chunk)  # per-row arrays
-                           if path == "general" else (1,), **f32)]
+               torch.empty((Bt, nc, H, ROW_ARRAYS, chunk), **f32)]  # rows
     strides = (ctypes.c_longlong * 8)(
         x.stride(0), x.stride(1), dt.stride(0), dt.stride(1), B.stride(0),
         B.stride(1), C.stride(0), C.stride(1))
@@ -371,7 +377,7 @@ def _ssd_backward_cuda(x, dt, A, B, C, dy, chunk: int):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ssd_backward(
-            _DTYPE_CODE[x.dtype], 0 if path == "fast" else 1,
+            _DTYPE_CODE[x.dtype], BACKWARD_PATHS.index(path),
             *(t.data_ptr() for t in (x, dt, A, B, C, dy, dx, ddt, dA, dB, dC,
                                      *scratch)),
             Bt, L, H, P, N, chunk, strides, stream)

@@ -10,7 +10,12 @@ The kernels themselves (``csrc/flash_attention_bwd.cu``,
     port's contract states, ROADMAP R4) on the same seeded numpy inputs,
     within 1e-5 (fp32 summation orders), and NEG exactly on a row that no
     key is visible to;
-  * ``mamba2_ssd.plan_backward`` at its boundaries;
+  * ``mamba2_ssd.plan_backward`` and ``flash_attention.plan_backward`` at
+    their boundaries, and their shared-memory sums against the sources';
+  * the split-bf16 products of the tensor-core paths (hi = bf16(x),
+    lo = bf16(x - hi), hi.hi + hi.lo + lo.hi), emulated in plain torch
+    against float64: the flash backward's five products and one SSD
+    chunk's G, R and dxdt, within a tenth of the fp32 bounds;
   * the backward operators' fakes give the plain backwards' shapes and
     dtypes, and the dry run's counter sees one backward operator a call;
   * the flash wrapper's padding of head dims the kernels have no
@@ -79,14 +84,19 @@ def test_plain_lse_matches_the_reference(shape):
 
 
 @pytest.mark.parametrize("P, N, chunk, path", [
-    (64, 64, 256, "fast"),          # zamba2
-    (16, 8, 64, "fast"),
-    (8, 4, 100, "fast"),            # a chunk of no multiple of 16
-    (65, 64, 256, "general"),       # just past the fast path's P
+    (64, 64, 256, "tensor"),        # zamba2
+    (16, 8, 64, "general"),         # N below the tensor path's widths
+    (8, 4, 100, "general"),         # a chunk of no multiple of 16
+    (32, 16, 128, "tensor"),
+    (16, 64, 16, "tensor"),
+    (48, 64, 256, "general"),       # P not a width of the tensor path
+    (64, 64, 272, "general"),       # past the tensor path's longest chunk
+    (64, 64, 100, "general"),       # a chunk of no multiple of 16
+    (65, 64, 256, "general"),       # P past the tensor path's widths
     (64, 65, 256, "general"),       # and N
     (128, 128, 256, "general"),
-    (64, 64, 2048, "fast"),         # the fast path's shared memory still fits
-    (64, 64, 4096, "general"),      # no longer
+    (64, 64, 2048, "general"),      # long chunks: cum in shared memory
+    (64, 64, 4096, "general"),
     (128, 128, 6000, "general"),
     # the forward's general path's longest chunks at P = N = 128 and 64
     (128, 128, 12672, "general"),
@@ -94,7 +104,9 @@ def test_plain_lse_matches_the_reference(shape):
 ])
 def test_plan_backward(P, N, chunk, path):
     assert SSD.plan_backward(P, N, chunk) == path
-    assert SSD.backward_smem(path, P, N, chunk) <= SSD.MAX_SMEM
+    assert SSD.backward_smem(P, N, chunk) <= SSD.MAX_SMEM
+    # x, B or C not 16-byte aligned: never the tensor path
+    assert SSD.plan_backward(P, N, chunk, aligned=False) == "general"
 
 
 def _forward_max_chunk(P, N):
@@ -113,8 +125,8 @@ def _forward_max_chunk(P, N):
 @pytest.mark.parametrize("P", [1, 8, 33, 64, 65, 128])
 def test_plan_backward_takes_every_chunk_the_forward_takes(P):
     for N in (1, 16, 64, 100, 128):
-        assert SSD.plan_backward(P, N, _forward_max_chunk(P, N)) in (
-            "fast", "general")
+        assert SSD.plan_backward(P, N, _forward_max_chunk(P, N)) == \
+            "general"
 
 
 @pytest.mark.parametrize("P, N, chunk", [(129, 64, 256), (64, 200, 64),
@@ -188,9 +200,11 @@ def test_meta_outside_the_dry_run_raises():
         FA.flash_attention_cuda(q, q, q)
 
 
-def _plain_kernel(q, k, v, o, lse, do, causal, window, scale=None):
+def _plain_kernel(q, k, v, o, lse, do, causal, window, scale=None,
+                  path=None):
     """A stand-in for the backward kernels: autograd through the plain
-    version at the (padded) shapes it is given, with the given scale."""
+    version at the (padded) shapes it is given, with the given scale (on
+    any path)."""
     ins = [t.detach().requires_grad_() for t in (q, k, v)]
     with torch.enable_grad():
         out = FA._plain(*ins, causal, window, scale)
@@ -242,14 +256,145 @@ def test_c_interfaces_match_the_wrappers(source, signatures):
 
 
 def test_backward_smem_is_the_kernels():
-    """``backward_smem`` mirrors ``chunk_smem_floats`` of the source."""
+    """``backward_smem`` mirrors ``chunk_smem_floats`` of the source at the
+    general path's 32-row tiles; the tensor path's widths and longest chunk
+    are the source's, whose static_assert fits its tiles within a block."""
     src = (CSRC / "mamba2_ssd_bwd.cu").read_text()
     body = re.search(r"chunk_smem_floats\([^)]*\)\s*\{(.*?)\n\}", src,
                      re.S).group(1)
     terms = re.sub(r"\(size_t\)|\s+", "", body)
     assert terms == ("return2*RT*(up4(P)+4)+2*RT*(up4(N)+4)+2*RT*(RT+4)+"
-                     "16*RT+(state?2*P*(up4(N)+4)+kRowArrays*c:0)+c+16;")
+                     "16*RT+c+16;")
+    assert "launch_nr<T, 32, 8>(a, p, st)" in src
     assert int(re.search(r"constexpr int kRowArrays = (\d+);", src)
                .group(1)) == SSD.ROW_ARRAYS
-    assert SSD.backward_smem("fast", 64, 64, 256) == 4 * (
-        2 * 64 * 68 * 2 + 2 * 64 * 68 + 16 * 64 + 2 * 64 * 68 + 6 * 256 + 16)
+    assert SSD.backward_smem(64, 64, 256) == 4 * (
+        2 * 32 * 68 * 2 + 2 * 32 * 36 + 16 * 32 + 256 + 16)
+    assert int(re.search(r"constexpr int kTcMaxChunk = (\d+);", src)
+               .group(1)) == SSD.TC_MAX_CHUNK
+    dims = re.search(r"#define SSD_BWD_TC_DIMS\(X\)(.*)", src).group(1)
+    assert tuple(int(d) for d in re.findall(r"X\((\d+)\)", dims)) == \
+        SSD.TC_DIMS
+    launch = re.search(r"int launch_tc\(.*?\n\}", src, re.S).group(0)
+    fit = re.sub(r"\s+", "", re.search(r"static_assert\((.*?),\s*\"",
+                                       launch, re.S).group(1))
+    assert fit == ("states_tc_smem(P,N,kTcMaxChunk)<=(size_t)kMaxSmem&&"
+                   "tc_smem_bytes(P,N,kTcMaxChunk)<=(size_t)kMaxSmem")
+    assert f"constexpr int kMaxSmem = {SSD.MAX_SMEM};" in src
+
+
+_FLASH_PATH_CASES = [
+    (pair, dtype, "wgmma" if pair[0] == pair[1] and pair[0] in (64, 80, 128)
+     else "general")
+    for pair in [(16, 16), (32, 32), (48, 48), (64, 64), (80, 80), (96, 96),
+                 (112, 112), (128, 128), (144, 144), (160, 160), (176, 176),
+                 (192, 192), (208, 208), (224, 224), (240, 240), (256, 256),
+                 (192, 128)]
+    for dtype in (torch.float32, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("pair, dtype, path", _FLASH_PATH_CASES, ids=str)
+def test_flash_plan_backward(pair, dtype, path):
+    """Every pair the kernels take maps to its path in each dtype (the
+    training head dims 64 and 80, and 128, to wgmma), and that path's
+    launcher in the source holds its blocks' shared memory within 227 KB
+    by a static_assert, so an instance that did not fit would not build."""
+    assert pair in FA.supported_head_dims()
+    assert FA.plan_backward(*pair, dtype) == path
+    src = (CSRC / "flash_attention_bwd.cu").read_text()
+    assert "constexpr int kMaxSmem = 232448;" in src
+    name = "launch_wgmma" if path == "wgmma" else \
+        "launch_f32" if dtype == torch.float32 else "launch_bf16"
+    launcher = re.search(r"int " + name + r"\(const Ptrs& a.*?\n\}", src,
+                         re.S).group(0)
+    fits = re.findall(r"static_assert\(([^;]*?kMaxSmem[^;]*?),\s*\"",
+                      launcher, re.S)
+    assert fits, name
+
+
+def test_flash_plan_backward_reads_the_source():
+    """The wgmma path's head dims are the source's, and a pair the kernels
+    do not take, or a dtype, raises."""
+    assert FA.wgmma_head_dims() == (64, 80, 128)
+    with pytest.raises(ValueError):
+        FA.plan_backward(24, 16, torch.float32)
+    with pytest.raises(ValueError):
+        FA.plan_backward(64, 64, torch.float16)
+
+
+def _split(x):
+    """x (float64 holding fp32 values) as its bf16 hi and lo parts."""
+    hi = x.float().bfloat16().double()
+    lo = (x.float() - hi.float()).bfloat16().double()
+    return hi, lo
+
+
+def _split_mm(a, b):
+    """a @ b as the kernels form it from split operands: hi.hi + hi.lo +
+    lo.hi, each bf16 product exact, summed in float64 (the tensor cores'
+    fp32 sums add rounding of their own, a far smaller term)."""
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    return ah @ bh + ah @ bl + al @ bh
+
+
+def _rel64(got, want):
+    return float((got - want).norm() / want.norm())
+
+
+@pytest.mark.parametrize("D", [64, 80])
+def test_split_products_meet_the_flash_bound(D):
+    """The flash backward's five products at one 128 x 128 tile pair of
+    fp32 inputs (S, dP, dV, dK, dQ), split as the wgmma path splits its
+    operands and P and dS, against float64: each within a tenth of
+    ``FLASH_BWD_REL`` (1e-4) for fp32."""
+    rng = np.random.default_rng(D)
+    Sq = Sk = 128
+    q, k = (torch.from_numpy(rng.normal(size=(n, D)) * 0.3).float().double()
+            for n in (Sq, Sk))
+    v, do = (torch.from_numpy(rng.normal(size=(n, D))).float().double()
+             for n in (Sk, Sq))
+    scale = D ** -0.5
+    s = q @ k.T * scale
+    mask = torch.tril(torch.ones(Sq, Sk, dtype=torch.bool))
+    s = s.masked_fill(~mask, -np.inf)
+    p = torch.softmax(s, dim=-1)
+    dp = do @ v.T
+    delta = (p * dp).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+    want = {"S": q @ k.T, "dP": dp, "dV": p.T @ do, "dK": ds.T @ q,
+            "dQ": ds @ k}
+    got = {"S": _split_mm(q, k.T), "dP": _split_mm(do, v.T),
+           "dV": _split_mm(p.T, do), "dK": _split_mm(ds.T, q),
+           "dQ": _split_mm(ds, k)}
+    for name in want:
+        assert _rel64(got[name], want[name]) <= 1e-5, name
+    # one bf16 rounding of each operand would miss the fp32 bound
+    single = (q.float().bfloat16().double() @ k.T.float().bfloat16().double())
+    assert _rel64(single, want["S"]) > 1e-4
+
+
+def test_split_products_meet_the_ssd_bound():
+    """One SSD chunk's G = C B^T, R = dy xdt^T and dxdt = (G o L)^T dy at
+    zamba2's widths (c = 256, P = N = 64) from fp32 inputs, split as the
+    tensor path splits its factors, against float64: each within a tenth
+    of ``SSD_BWD_REL`` (1e-4) for fp32."""
+    rng = np.random.default_rng(7)
+    c, P, N = 256, 64, 64
+
+    def f32(*shape, scale=1.0):
+        return torch.from_numpy(rng.normal(size=shape) * scale).float() \
+            .double()
+    x, dy = f32(c, P), f32(c, P)
+    B, C = f32(c, N, scale=0.3), f32(c, N, scale=0.3)
+    dt = torch.from_numpy(np.log1p(np.exp(rng.normal(size=c))) * 0.1) \
+        .float().double()
+    cum = torch.cumsum(dt * -0.5, 0)
+    L = torch.tril(torch.exp(cum[:, None] - cum[None, :]))
+    xdt = (x * dt[:, None]).float().double()
+    G, R = C @ B.T, dy @ xdt.T
+    want = {"G": G, "R": R, "dxdt": (G * L).T @ dy}
+    got = {"G": _split_mm(C, B.T), "R": _split_mm(dy, xdt.T),
+           "dxdt": _split_mm((G * L).T.float().double(), dy)}
+    for name in want:
+        assert _rel64(got[name], want[name]) <= 1e-5, name

@@ -8,10 +8,14 @@ fixture, never at import).  On a machine with a card and ``nvcc``:
 builds the kernels at first use.  This file imports no JAX: on the card
 the reference is the port's plain backward (autograd through the plain
 version).  Bounds, relative Frobenius error of each gradient: fp32 1e-4
-(exact fp32 products, other summation orders), bf16 2e-2 (flash: the
-kernels round P and dS to bf16 operands, the plain version rounds dP;
-SSD: both round their fp32 gradients to bf16 once); two calls
-on the same inputs give the same bits (no float atomics).
+(fp32 products exact on the FMA units, or as split bf16 operands on the
+tensor cores; other summation orders), bf16 2e-2 (flash: the kernels
+round P and dS to bf16 operands, the plain version rounds dP; SSD: both
+round their fp32 gradients to bf16 once); two calls on the same inputs
+give the same bits (no float atomics).  Each backward runs on the path
+its ``plan_backward`` gives; the SSD shapes cover both of its paths
+("tensor" and "general"), and the flash backward also runs its general
+path where the "wgmma" path is planned.
 """
 import pytest
 import torch
@@ -43,6 +47,8 @@ FLASH = [  # B, H, Kh, Sq, Sk, D, Dv, causal, window
     (1, 4, 2, 256, 256, 192, 128, True, 0),
     (1, 2, 2, 136, 136, 240, 240, True, 0),
     (1, 2, 1, 136, 136, 24, 16, True, 0),      # padded to (32, 32)
+    (1, 4, 4, 200, 200, 80, 80, True, 0),      # the wgmma path's widths
+    (1, 8, 1, 160, 160, 128, 128, True, 48),
 ]
 
 
@@ -62,8 +68,35 @@ def test_flash_backward_kernel_vs_plain(card, shape, dtype):
         q, k, v, causal=causal, window=window), (q, k, v), do)
         for _ in range(2)]
     assert FA.backward_launches == n + 2
+    assert FA.last_backward_plan == FA.plan_backward(
+        *FA.padded_head_dims(D, Dv), dtype)
     want = FA.flash_attention_backward(q.detach(), k.detach(), v.detach(),
                                        do, causal=causal, window=window)
+    for g, g2, w in zip(*got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, g2)
+        assert _rel(g, w) <= REL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape", FLASH, ids=str)
+def test_flash_backward_general_path_vs_plain(card, shape, dtype):
+    """The general path, which every pair takes, also where the wgmma path
+    is planned."""
+    B, H, Kh, Sq, Sk, D, Dv, causal, window = shape
+
+    def rn(*s, scale=1.0):
+        return (torch.randn(s, generator=card, device="cuda") * scale
+                ).to(dtype)
+    q, k, v = rn(B, H, Sq, D, scale=0.3), rn(B, Kh, Sk, D, scale=0.3), \
+        rn(B, Kh, Sk, Dv)
+    do = rn(B, H, Sq, Dv)
+    o, lse = FA.flash_attention_lse_op(q, k, v, causal, window)
+    got = [FA._cuda_backward(q, k, v, o, lse, do, causal, window,
+                             path="general") for _ in range(2)]
+    assert FA.last_backward_plan == "general"
+    want = FA.flash_attention_backward(q, k, v, do, causal=causal,
+                                       window=window)
     for g, g2, w in zip(*got, want):
         assert g.dtype == w.dtype and g.shape == w.shape
         assert torch.equal(g, g2)
@@ -85,7 +118,8 @@ def test_flash_forward_lse_vs_plain(card, dtype):
 
 SSD_SHAPES = [(2, 512, 4, 64, 64, 256), (2, 100, 3, 16, 16, 100),
               (1, 256, 2, 128, 96, 128), (2, 64, 3, 8, 4, 64),
-              (1, 4096, 4, 64, 64, 4096)]      # general: a long chunk
+              (1, 4096, 4, 64, 64, 4096),      # general: a long chunk
+              (1, 256, 2, 32, 16, 128)]        # tensor: P != N
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)

@@ -121,6 +121,45 @@ def test_make_batch_labels_leave_serving_draws_unchanged(arch):
     assert not torch.equal(labels, with_labels["tokens"])
 
 
+def _elastic():
+    spec = importlib.util.spec_from_file_location(
+        "elastic_recovery_torch", EXAMPLES / "elastic_recovery_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta", None])
+def test_elastic_example_passes_its_device_to_train(device, monkeypatch,
+                                                     capsys):
+    """``elastic_recovery_torch.py`` trains where ``--device`` says, the
+    card by default (resolved as ``train.main`` resolves it): both of its
+    runs get that device, and nothing else of their arguments changes."""
+    mod = _elastic()
+    calls = []
+
+    def fake_main(argv):
+        calls.append(list(argv))
+        return 1.0
+
+    monkeypatch.setattr(mod.train, "main", fake_main)
+    argv = [] if device is None else ["--device", device]
+    if device is None and not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            mod.main(argv)
+        assert calls == []
+        return
+    mod.main(argv)
+    assert len(calls) == 2
+    for call in calls:
+        i = call.index("--device")
+        assert call[i + 1] == (device or "cuda")
+        assert call.count("--device") == 1
+    assert "--simulate-failure" not in calls[0]
+    assert calls[1][calls[1].index("--simulate-failure") + 1] == "80"
+    assert "elastic_recovery_torch OK" in capsys.readouterr().out
+
+
 def test_port_examples_import_neither_jax_nor_the_reference():
     """Every ``examples/*_torch.py`` imports the port alone, and sets no
     ``JAX_PLATFORMS``."""
